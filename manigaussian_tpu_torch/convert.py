@@ -1,0 +1,162 @@
+"""JAX parameter tree → this package's `state_dict`.
+
+Input: the nested dict of numpy arrays that `jax.device_get` returns for the
+JAX agent's parameters (`TrainState.params`, i.e. {"params": {"qnet": ...}}),
+or its "qnet" subtree. Output: the `QFunction` state_dict (keys "qnet.…").
+
+Layouts: Dense kernel [in, out] → weight [out, in]; conv kernel DHWIO →
+OIDHW; LayerNorm/GroupNorm `scale` → `weight`. Conv3DBlock keeps its kernel
+either directly ({kernel, bias}: the 'z2d'/'pallas' fast path) or under
+`Conv_0` (the 'xla' path and every edge-padded conv); both are read. The
+U-Net's parameter names follow construction order in flax (a nested
+`A(B(x))` names A first), and the 'packed' impl names them as the inverse of
+`packed3d.transplant_unet_params`; both impls map onto the plain U-Net.
+
+The `neural_renderer` subtree (the Gaussian and NeRF renderers) is skipped:
+the port has no renderer until the training slice.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+# U-Net module (port) ← flax names, 'packed' impl
+_UNET_PACKED = {
+    "enc0": "PackedConvNormAct3D_0", "enc1": "PackedConvNormAct3D_1",
+    "enc1_down": "PackedConvNormAct3D_2", "enc2": "ConvNormAct3D_0",
+    "enc2_down": "ConvNormAct3D_1", "mid": "ConvNormAct3D_2",
+    "mid_down": "ConvNormAct3D_3", "up2": ("Conv_0", "GroupNorm_0"),
+    "up1": "PackedConvNormAct3D_3", "up0": "PackedConvNormAct3D_4",
+    "out": "Conv_1",
+}
+# ... and 'xla' impl (also what 'packed' falls back to when V % 4 != 0)
+_UNET_PLAIN = {
+    "enc0": "ConvNormAct3D_0", "enc1": "ConvNormAct3D_1",
+    "enc1_down": "ConvNormAct3D_2", "enc2": "ConvNormAct3D_3",
+    "enc2_down": "ConvNormAct3D_4", "mid": "ConvNormAct3D_5",
+    "mid_down": "ConvNormAct3D_6", "up2": ("Conv_0", "GroupNorm_0"),
+    "up1": ("Conv_1", "GroupNorm_1"), "up0": ("Conv_2", "GroupNorm_2"),
+    "out": "Conv_3",
+}
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def _conv(kernel) -> torch.Tensor:
+    """DHWIO → OIDHW."""
+    return _t(kernel).permute(4, 3, 0, 1, 2).contiguous()
+
+
+def _dense(tree: Mapping, prefix: str, out: Dict) -> None:
+    out[prefix + "weight"] = _t(tree["kernel"]).T.contiguous()
+    if "bias" in tree:
+        out[prefix + "bias"] = _t(tree["bias"])
+
+
+def _norm(tree: Mapping, prefix: str, out: Dict) -> None:
+    out[prefix + "weight"] = _t(tree["scale"])
+    out[prefix + "bias"] = _t(tree["bias"])
+
+
+def _conv_block(tree: Mapping, prefix: str, out: Dict) -> None:
+    tree = tree if "kernel" in tree else tree["Conv_0"]
+    out[prefix + "weight"] = _conv(tree["kernel"])
+    out[prefix + "bias"] = _t(tree["bias"])
+
+
+def _conv_norm(tree: Mapping, prefix: str, out: Dict,
+               conv: str = "Conv_0", norm: str = "GroupNorm_0") -> None:
+    """ConvNormAct3D: the packed form keeps {kernel, scale, bias} flat."""
+    if "kernel" in tree:
+        out[prefix + "weight"] = _conv(tree["kernel"])
+        out[prefix + "norm.weight"] = _t(tree["scale"])
+        out[prefix + "norm.bias"] = _t(tree["bias"])
+    else:
+        out[prefix + "weight"] = _conv(tree[conv]["kernel"])
+        _norm(tree[norm], prefix + "norm.", out)
+
+
+def _unet(tree: Mapping, prefix: str, out: Dict) -> None:
+    names = _UNET_PACKED if "PackedConvNormAct3D_0" in tree else _UNET_PLAIN
+    for mod, src in names.items():
+        p = f"{prefix}{mod}."
+        if mod == "out":
+            _conv_block(tree[src], p, out)
+        elif isinstance(src, tuple):
+            out[p + "weight"] = _conv(tree[src[0]]["kernel"])
+            _norm(tree[src[1]], p + "norm.", out)
+        else:
+            _conv_norm(tree[src], p, out)
+
+
+def _prenorm_attention(tree: Mapping, prefix: str, out: Dict) -> None:
+    _norm(tree["LayerNorm_0"], prefix + "norm.", out)
+    if "LayerNorm_1" in tree:
+        _norm(tree["LayerNorm_1"], prefix + "norm_context.", out)
+    att = tree["Attention_0"]
+    for name in ("to_q", "to_kv", "to_out"):
+        _dense(att[name], f"{prefix}attn.{name}.", out)
+
+
+def _prenorm_ff(tree: Mapping, prefix: str, out: Dict) -> None:
+    _norm(tree["LayerNorm_0"], prefix + "norm.", out)
+    ff = tree["GEGLUFeedForward_0"]
+    _dense(ff["Dense_0"], prefix + "ff.proj.", out)
+    _dense(ff["Dense_1"], prefix + "ff.out.", out)
+
+
+def perceiver_state_dict(q: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """The JAX `PerceiverVoxelLangEncoder` tree → PerceiverVoxelLangEncoder
+    state_dict."""
+    out: Dict[str, torch.Tensor] = {}
+    _unet(q["encoder_3d"], prefix + "encoder_3d.", out)
+    p = prefix + "patchify."
+    out[p + "weight"] = _conv(q["patchify"]["kernel"])
+    out[p + "bias"] = _t(q["patchify"]["bias"])
+    if "proprio_preprocess" in q:
+        _dense(q["proprio_preprocess"]["Dense_0"],
+               prefix + "proprio_preprocess.dense.", out)
+    _dense(q["lang_preprocess"], prefix + "lang_preprocess.", out)
+    out[prefix + "pos_encoding"] = _t(q["pos_encoding"])
+    out[prefix + "latents"] = _t(q["latents"])
+    _prenorm_attention(q["cross_attn"], prefix + "cross_attn.", out)
+    _prenorm_ff(q["cross_ff"], prefix + "cross_ff.", out)
+    i = 0
+    while f"self_attn_{i}" in q:
+        _prenorm_attention(q[f"self_attn_{i}"], f"{prefix}self_attn.{i}.", out)
+        _prenorm_ff(q[f"self_ff_{i}"], f"{prefix}self_ff.{i}.", out)
+        i += 1
+    _prenorm_attention(q["decoder_cross_attn"], prefix + "decoder_cross_attn.",
+                       out)
+    _conv_block(q["up0"]["Conv3DBlock_0"], prefix + "up0.conv_a.", out)
+    _conv_block(q["up0"]["Conv3DBlock_1"], prefix + "up0.conv_b.", out)
+    _conv_block(q["final"], prefix + "final.", out)
+    p = prefix + "trans_decoder."
+    out[p + "weight"] = _conv(q["trans_decoder"]["kernel"])
+    out[p + "bias"] = _t(q["trans_decoder"]["bias"])
+    for name in ("dense0", "dense1", "rot_grip_collision_ff"):
+        if name in q:
+            _dense(q[name]["Dense_0"], f"{prefix}{name}.dense.", out)
+    return out
+
+
+def unet_state_dict(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX `VoxelUNetShallow` tree ('packed' or 'xla') → VoxelUNetShallow
+    state_dict."""
+    out: Dict[str, torch.Tensor] = {}
+    _unet(tree, "", out)
+    return out
+
+
+def qfunction_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX agent parameters → `QFunction` state_dict. Accepts the full tree
+    ({"params": {"qnet": ..., "neural_renderer": ...}}) or its "qnet"
+    subtree; the renderer subtree is skipped."""
+    tree = params.get("params", params)
+    tree = tree.get("qnet", tree)
+    return perceiver_state_dict(tree, prefix="qnet.")
