@@ -12,8 +12,10 @@ U-Net's parameter names follow construction order in flax (a nested
 `A(B(x))` names A first), and the 'packed' impl names them as the inverse of
 `packed3d.transplant_unet_params`; both impls map onto the plain U-Net.
 
-The `neural_renderer` subtree (the Gaussian and NeRF renderers) is skipped:
-the port has no renderer until the training slice.
+The `neural_renderer` subtree of the Gaussian renderer maps onto the
+renderer's modules (`gs_model/encoder`, `gs_model/regresser`,
+`gs_model/deformation`), so a whole JAX `TrainState.params` tree loads; the
+GNFactor NeRF renderer is not ported.
 """
 
 from __future__ import annotations
@@ -153,10 +155,41 @@ def unet_state_dict(tree: Mapping) -> Dict[str, torch.Tensor]:
     return out
 
 
+def _resnetfc(tree: Mapping, prefix: str, out: Dict) -> None:
+    """flax ResnetFC (Dense_0, lin_z_i, block_i/{Dense_0, Dense_1}, Dense_1)
+    → models/gaussian_regressor.ResnetFC."""
+    _dense(tree["Dense_0"], prefix + "lin_in.", out)
+    i = 0
+    while f"lin_z_{i}" in tree:
+        _dense(tree[f"lin_z_{i}"], f"{prefix}lin_z.{i}.", out)
+        i += 1
+    i = 0
+    while f"block_{i}" in tree:
+        _dense(tree[f"block_{i}"]["Dense_0"], f"{prefix}blocks.{i}.fc0.", out)
+        _dense(tree[f"block_{i}"]["Dense_1"], f"{prefix}blocks.{i}.fc1.", out)
+        i += 1
+    _dense(tree["Dense_1"], prefix + "lin_out.", out)
+
+
+def renderer_state_dict(tree: Mapping,
+                        prefix: str = "") -> Dict[str, torch.Tensor]:
+    """The JAX `NeuralRenderer` tree → NeuralRenderer state_dict."""
+    out: Dict[str, torch.Tensor] = {}
+    gs = tree["gs_model"]
+    _resnetfc(gs["encoder"], prefix + "gs_model.encoder.", out)
+    _dense(gs["regresser"]["Dense_0"], prefix + "gs_model.regresser.", out)
+    if "deformation" in gs:
+        _resnetfc(gs["deformation"], prefix + "gs_model.deformation.", out)
+    return out
+
+
 def qfunction_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
     """JAX agent parameters → `QFunction` state_dict. Accepts the full tree
     ({"params": {"qnet": ..., "neural_renderer": ...}}) or its "qnet"
-    subtree; the renderer subtree is skipped."""
+    subtree."""
     tree = params.get("params", params)
-    tree = tree.get("qnet", tree)
-    return perceiver_state_dict(tree, prefix="qnet.")
+    out = perceiver_state_dict(tree.get("qnet", tree), prefix="qnet.")
+    if "neural_renderer" in tree:
+        out.update(renderer_state_dict(tree["neural_renderer"],
+                                       prefix="neural_renderer."))
+    return out

@@ -1,6 +1,6 @@
 """Building blocks of the voxel policy network.
 
-Port of `manigaussian_tpu/models/blocks.py` (forward only). Public layouts
+Port of `manigaussian_tpu/models/blocks.py`. Public layouts
 stay channels-last ([B, D, H, W, C]), as in the JAX package; a module
 transposes to NCDHW only around `F.conv3d`, and that transpose of a
 contiguous channels-last tensor is a `channels_last_3d` view, so no copy.
@@ -71,12 +71,15 @@ def init_weight_(w: torch.Tensor, kind: str, generator: torch.Generator):
     """flax.linen initializers by name, in place, from `generator`."""
     fan_in, fan_out = _fans(w)
     with torch.no_grad():
-        if kind == "lecun_normal":
-            # variance_scaling(1, fan_in, truncated_normal): ±2σ truncation
-            std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+        if kind in ("lecun_normal", "kaiming_normal"):
+            # variance_scaling(1 or 2, fan_in, truncated_normal): ±2σ
+            scale = 1.0 if kind == "lecun_normal" else 2.0
+            std = math.sqrt(scale / fan_in) / 0.87962566103423978
             nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
                                   generator=generator)
             return w
+        if kind == "zeros":
+            return w.zero_()
         if kind == "normal":
             return w.normal_(0.0, 1.0, generator=generator)
         scale, fan = {"kaiming_uniform": (2.0, fan_in),
@@ -311,22 +314,51 @@ def _pos_grid(d: int, h: int, w: int, device) -> torch.Tensor:
     return torch.stack(torch.meshgrid(*axes, indexing="ij"), dim=-1).reshape(-1, 3)
 
 
+class _SoftArgmaxMax(torch.autograd.Function):
+    """Soft-argmax and max over the grid axis of xf [B, P, C] (JAX
+    blocks.py:264-317, an XLA custom VJP). The backward recomputes the
+    softmax weights instead of saving the [B, P, C] attention tensor, and
+    splits the max's cotangent equally over argmax ties (what jnp.max's
+    autodiff gives)."""
+
+    @staticmethod
+    def forward(ctx, xf, pos, temperature):
+        t = torch.tensor(temperature, dtype=torch.float32, device=xf.device)
+        z = xf.float() / t
+        m = z.amax(dim=1, keepdim=True)
+        xmax = xf.amax(dim=1).float()
+        e = torch.exp(z - m)
+        s0 = e.sum(dim=1)                                   # [B, C]
+        out = torch.einsum("bpc,pk->bck", e, pos) / s0[..., None]
+        ctx.save_for_backward(xf, pos, m, s0, out, xmax)
+        ctx.temperature = t
+        return out, xmax
+
+    @staticmethod
+    def backward(ctx, g_out, g_max):
+        xf, pos, m, s0, out, xmax = ctx.saved_tensors
+        t = ctx.temperature
+        z = xf.float() / t
+        dx = torch.zeros_like(z)
+        if g_out is not None:
+            attn = torch.exp(z - m) / s0[:, None, :]
+            proj = torch.einsum("pk,bck->bpc", pos, g_out)
+            dot = (out * g_out).sum(dim=-1)
+            dx = attn * (proj - dot[:, None, :]) / t
+        if g_max is not None:
+            tie = (xf.float() == xmax[:, None, :]).float()
+            dx = dx + tie * (g_max[:, None, :] / tie.sum(dim=1, keepdim=True))
+        return dx.to(xf.dtype), None, None
+
+
 def spatial_softmax3d_with_max(x: torch.Tensor, temperature: float = 0.01):
     """Per-channel soft-argmax + per-channel max over a 3D grid (JAX
-    blocks.py:255-335, forward only): returns (expected coordinates
-    [B, C*3], max [B, C]), both float32. The division by the temperature is
-    by a tensor, as a true division (see ops/voxelize.py)."""
+    blocks.py:255-335): returns (expected coordinates [B, C*3], max [B, C]),
+    both float32. The division by the temperature is by a tensor, as a true
+    division (see ops/voxelize.py)."""
     b, d, h, w, c = x.shape
-    xf = x.reshape(b, d * h * w, c)
-    pos = _pos_grid(d, h, w, x.device)
-    z = xf.float() / torch.tensor(temperature, dtype=torch.float32,
-                                  device=x.device)
-    m = z.amax(dim=1, keepdim=True)
-    xmax = xf.amax(dim=1).float()
-    e = torch.exp(z - m)
-    s0 = e.sum(dim=1)                                   # [B, C]
-    s1 = torch.einsum("bpc,pk->bck", e, pos)            # [B, C, 3]
-    out = s1 / s0[..., None]
+    out, xmax = _SoftArgmaxMax.apply(x.reshape(b, d * h * w, c),
+                                     _pos_grid(d, h, w, x.device), temperature)
     return out.reshape(b, c * 3), xmax
 
 

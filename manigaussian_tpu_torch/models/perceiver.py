@@ -1,7 +1,6 @@
 """Perceiver IO voxel/language policy encoder (the Q-attention net).
 
-Port of `manigaussian_tpu/models/perceiver.py:41-307`, forward only, for the
-act path (dropout is off there; it comes back with training):
+Port of `manigaussian_tpu/models/perceiver.py:41-307`:
 
   voxel [B,V³,10] → 3D U-Net (→128ch, d0) → patchify 5³ → +proprio → 256-ch
   tokens + 77 language tokens → +pos-enc → cross-attn into 2048×512 latents
@@ -15,11 +14,18 @@ when N % 256 == 0, one block when N ≤ 256, the plain path otherwise. Cross
 attention always takes the plain path. The two paths differ in type as in
 the JAX package: the flash path returns q's dtype, the plain one float32;
 both feed `to_out`, which casts to the compute dtype.
+
+Dropout is on only when `deterministic=False`, as in JAX, and draws from an
+explicit CPU `torch.Generator`: the flash path takes a seed in
+[0, 2³¹−1) per call for the kernel's hashed mask (`perceiver.py:82-84`);
+the plain path (at w_geo the cross attention, rate `input_dropout`) a
+Bernoulli keep mask on the probabilities, from a device generator seeded
+from the same generator.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
@@ -43,16 +49,18 @@ class Attention(nn.Module):
     """Multi-head attention, optionally cross (perceiver_lang_io.py:102-145)."""
 
     def __init__(self, query_dim: int, context_dim: int, heads: int = 8,
-                 dim_head: int = 64, dtype: torch.dtype = torch.float32,
-                 impl: str = "xla"):
+                 dim_head: int = 64, dropout: float = 0.0,
+                 dtype: torch.dtype = torch.float32, impl: str = "xla"):
         super().__init__()
         inner = heads * dim_head
         self.to_q = Dense(query_dim, inner, use_bias=False, dtype=dtype)
         self.to_kv = Dense(context_dim, inner * 2, use_bias=False, dtype=dtype)
         self.to_out = Dense(inner, query_dim, dtype=dtype)
         self.heads, self.dim_head, self.impl = heads, dim_head, impl
+        self.dropout = dropout
 
-    def forward(self, x, context=None):
+    def forward(self, x, context=None, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
         is_self = context is None
         context = x if is_self else context
         q = self.to_q(x)
@@ -64,19 +72,40 @@ class Attention(nn.Module):
 
         q, k, v = map(split_heads, (q, k, v))
         bq = flash_block_q(q.shape[2])
+        rate = 0.0 if deterministic else float(self.dropout)
+        if rate > 0.0 and generator is None:
+            raise ValueError("attention dropout needs a generator")
         if self.impl == "flash" and is_self and bq:
+            seed = None
+            if rate > 0.0:
+                seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
+                                     dtype=torch.int32)
             out = flash_self_attention(q.contiguous(), k.contiguous(),
-                                       v.contiguous(), block_q=bq)
+                                       v.contiguous(), dropout_rate=rate,
+                                       dropout_seed=seed, block_q=bq)
         else:
             scale = torch.tensor(self.dim_head ** -0.5, dtype=q.dtype,
                                  device=q.device)
             logits = torch.matmul((q * scale).float(),
                                   k.float().transpose(-1, -2))
             attn = torch.softmax(logits, dim=-1)
+            if rate > 0.0:
+                attn = _dropout(attn, rate, generator)
             out = torch.matmul(attn.to(v.dtype).float(), v.float())
         b, _, n, _ = out.shape
         out = out.permute(0, 2, 1, 3).reshape(b, n, self.heads * self.dim_head)
         return self.to_out(out)
+
+
+def _dropout(x: torch.Tensor, rate: float,
+             generator: torch.Generator) -> torch.Tensor:
+    """flax nn.Dropout: keep with probability 1 - rate, kept values scaled
+    by 1/(1 - rate); the mask is drawn on x's device from a generator seeded
+    by `generator`."""
+    dev_gen = torch.Generator(device=x.device).manual_seed(
+        int(torch.randint(0, 2 ** 62, (1,), generator=generator)))
+    keep = torch.rand(x.shape, generator=dev_gen, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
 class GEGLUFeedForward(nn.Module):
@@ -95,18 +124,20 @@ class GEGLUFeedForward(nn.Module):
 
 class PreNormAttention(nn.Module):
     def __init__(self, dim: int, heads: int, dim_head: int,
-                 context_dim: int = 0, dtype: torch.dtype = torch.float32,
-                 impl: str = "xla"):
+                 context_dim: int = 0, dropout: float = 0.0,
+                 dtype: torch.dtype = torch.float32, impl: str = "xla"):
         """context_dim > 0 makes it cross attention (with its own norm)."""
         super().__init__()
         self.norm = layer_norm(dim)
         self.norm_context = layer_norm(context_dim) if context_dim else None
         self.attn = Attention(dim, context_dim or dim, heads, dim_head,
-                              dtype=dtype, impl=impl)
+                              dropout=dropout, dtype=dtype, impl=impl)
 
-    def forward(self, x, context=None):
+    def forward(self, x, context=None, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
         cn = None if self.norm_context is None else self.norm_context(context)
-        return self.attn(self.norm(x), context=cn)
+        return self.attn(self.norm(x), context=cn, deterministic=deterministic,
+                         generator=generator)
 
 
 class PreNormFF(nn.Module):
@@ -133,7 +164,9 @@ class PerceiverVoxelLangEncoder(nn.Module):
                  latent_heads: int = 8, cross_dim_head: int = 64,
                  latent_dim_head: int = 64, activation: str = "lrelu",
                  lang_emb_dim: int = 512, lang_max_seq_len: int = 77,
-                 voxel_patch_size: int = 5, voxel_patch_stride: int = 5,
+                 input_dropout: float = 0.1, attn_dropout: float = 0.1,
+                 decoder_dropout: float = 0.0, voxel_patch_size: int = 5,
+                 voxel_patch_stride: int = 5,
                  final_dim: int = 128, no_skip_connection: bool = False,
                  no_perceiver: bool = False, no_language: bool = False,
                  unet_channels: Sequence[int] = (8, 16, 32, 64),
@@ -164,16 +197,17 @@ class PerceiverVoxelLangEncoder(nn.Module):
 
         self.cross_attn = PreNormAttention(latent_dim, cross_heads,
                                            cross_dim_head, context_dim=token_dim,
-                                           dtype=dtype)
+                                           dropout=input_dropout, dtype=dtype)
         self.cross_ff = PreNormFF(latent_dim, dtype=dtype)
         self.self_attn = nn.ModuleList(
             PreNormAttention(latent_dim, latent_heads, latent_dim_head,
-                             dtype=dtype, impl=attn_impl) for _ in range(depth))
+                             dropout=attn_dropout, dtype=dtype, impl=attn_impl)
+            for _ in range(depth))
         self.self_ff = nn.ModuleList(
             PreNormFF(latent_dim, dtype=dtype) for _ in range(depth))
         self.decoder_cross_attn = PreNormAttention(
             token_dim, cross_heads, cross_dim_head, context_dim=latent_dim,
-            dtype=dtype)
+            dropout=decoder_dropout, dtype=dtype)
 
         self.up0 = Conv3DUpsampleBlock(token_dim, final_dim, voxel_patch_stride,
                                        kernel_size=3, activation=activation,
@@ -198,8 +232,11 @@ class PerceiverVoxelLangEncoder(nn.Module):
         init_weight_(self.pos_encoding, "normal", generator)
         init_weight_(self.latents, "normal", generator)
 
-    def forward(self, voxel_grid, proprio, lang_goal_emb, lang_token_embs):
+    def forward(self, voxel_grid, proprio, lang_goal_emb, lang_token_embs,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
         b = voxel_grid.shape[0]
+        drop = dict(deterministic=deterministic, generator=generator)
         s = self.spatial
         if self.no_language:
             lang_token_embs = torch.zeros_like(lang_token_embs)
@@ -221,13 +258,13 @@ class PerceiverVoxelLangEncoder(nn.Module):
 
         x = self.latents[None].expand(b, *self.latents.shape)
         for _ in range(self.iterations):
-            x = self.cross_attn(x, context=ins) + x
+            x = self.cross_attn(x, context=ins, **drop) + x
             x = self.cross_ff(x) + x
             for sa, ff in zip(self.self_attn, self.self_ff):
-                x = sa(x) + x
+                x = sa(x, **drop) + x
                 x = ff(x) + x
 
-        dec = self.decoder_cross_attn(ins, context=x)          # [B,S³+77,2im]
+        dec = self.decoder_cross_attn(ins, context=x, **drop)  # [B,S³+77,2im]
         dec = dec[:, num_lang:].reshape(queries_shape)
         feats.extend(spatial_softmax3d_with_max(dec))
 

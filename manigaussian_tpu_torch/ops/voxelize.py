@@ -29,6 +29,17 @@ import torch
 MIN_DENOMINATOR = 1e-12
 
 
+def segment_sum(rows: torch.Tensor, index: torch.Tensor, n: int) -> torch.Tensor:
+    """Σ of the rows [D, C] that share an index in [0, n), into [n, C]: a
+    stable sort of the indices, then `torch.segment_reduce` over each index's
+    run, so every sum has a fixed order (`index_add_` accumulates with
+    atomics on CUDA, in an order that changes from run to run)."""
+    order = torch.argsort(index, stable=True)
+    lengths = torch.bincount(index, minlength=n)
+    return torch.segment_reduce(rows[order], "sum", lengths=lengths, axis=0,
+                                unsafe=True)
+
+
 def voxelize(coords: torch.Tensor, coord_features: Optional[torch.Tensor],
              coord_bounds: torch.Tensor, voxel_size: int = 100) -> torch.Tensor:
     """coords [B, N, 3], coord_features [B, N, F] or None, coord_bounds [6]
@@ -60,10 +71,7 @@ def voxelize(coords: torch.Tensor, coord_features: Optional[torch.Tensor],
     seg = (flat_idx + batch_off).reshape(-1)
     num_cells = b * dims ** 3
 
-    order = torch.argsort(seg, stable=True)
-    lengths = torch.bincount(seg, minlength=num_cells)
-    sums = torch.segment_reduce(values.reshape(-1, c)[order], "sum",
-                                lengths=lengths, axis=0, unsafe=True)
+    sums = segment_sum(values.reshape(-1, c), seg, num_cells)
     counts = sums[:, -1:]
     mean = sums / torch.clamp(counts, min=1.0)
     grid = mean.reshape(b, dims, dims, dims, c)[:, 1:-1, 1:-1, 1:-1]

@@ -1,8 +1,9 @@
 """Dict/JSON ↔ config dataclasses with dotted overrides.
 
-A copy of the part of `manigaussian_tpu/utils/config_io.py` that eval needs:
-`from_dict`, `parse_overrides`, `save_config` and `load_saved_config`. The
-saved `config.json` has the same format in both packages.
+A copy of `manigaussian_tpu/utils/config_io.py`: `from_dict`,
+`parse_overrides`, `load_config` (variant + optional YAML + dotted
+overrides), `save_config` and `load_saved_config`. The saved `config.json`
+has the same format in both packages.
 """
 
 from __future__ import annotations
@@ -70,6 +71,19 @@ def parse_overrides(overrides: List[str]) -> Dict[str, Any]:
             node = node.setdefault(p, {})
         node[parts[-1]] = val
     return out
+
+
+def load_config(yaml_path: Optional[str] = None,
+                overrides: Optional[List[str]] = None,
+                variant: Optional[str] = None) -> C.ManiGaussianConfig:
+    base = C.VARIANTS[variant]() if variant else C.ManiGaussianConfig()
+    if yaml_path:
+        import yaml  # only for a YAML config file
+        with open(yaml_path) as f:
+            base = from_dict(yaml.safe_load(f) or {}, base)
+    if overrides:
+        base = from_dict(parse_overrides(overrides), base)
+    return base
 
 
 def save_config(cfg: C.ManiGaussianConfig, logdir: str,
