@@ -11,20 +11,22 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                    card at the main paths' shapes and a few ragged ones: the
                    flash forward (without and with dropout, the same hashed
                    mask) and backward (dq, dk, dv against autograd of the
-                   plain version), the tile blend forward and backward on the
+                   plain version); the tile blend forward and backward on the
                    tiles of a real frame (16,384 random Gaussians in a 128²
-                   view, binned by the port's rasterizer); then `golden`: the
+                   view, binned by the port's rasterizer); `golden`: the
                    JAX package's pinned frames (tests/goldens/*.npz, read with
-                   numpy) rendered through the kernel route; then time each
-                   kernel, its plain version and the PyTorch call that
-                   computes the same function (a yardstick only; the port
-                   never calls it), and F.conv3d and its weight gradient at
-                   the shapes of the TPU conv kernels the port has not ported;
+                   numpy) rendered through the kernel route; `conv`: the 3³
+                   conv forward, dx and dW (workspace and resident scheme, each
+                   bitwise repeatable) in fp32 and bf16 at ragged shapes and at
+                   the policy's two 100³ convs. Then time each kernel, its
+                   plain version and the PyTorch call that computes the same
+                   function (a yardstick only; the port never calls it);
   3. small       — references on small inputs, the card against the CPU (the
                    plain versions, which tests/test_torch_*.py hold to the JAX
                    package): voxelize on cell boundaries, the micro config's
-                   act in fp32 and bf16, and `small_train`: the micro
-                   config's `update` in fp32, dropout 0, the same draws;
+                   act in fp32 and bf16 on each conv route, and `small_train`:
+                   the micro configs' `update` in fp32, dropout 0, the same
+                   draws (`w_geo`; `w_geo_dyna` on the conv kernels);
   4. slice       — the act/eval path at the full width of `config.w_geo()`
                    (V=100, 2048×512 latents, 6 layers of 8×64 heads, bf16, one
                    128² front camera), random weights from seed 0, through the
@@ -35,7 +37,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                    latency, memory; torch.profiler over act calls;
   6. train_slice — the training path at full `w_geo` width through
                    `python -m manigaussian_tpu_torch.train`'s main(): two
-                   synthetic demos at 128² with nerf views, batch 1, 8 steps,
+                   synthetic demos at 128² with nerf views, batch 1, 6 steps,
                    a checkpoint, then a resume; the counts are set to 0 just
                    before and read just after: per step `transformer_depth`
                    flash forwards and backwards, 1 blend forward and 1 blend
@@ -43,7 +45,19 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
   7. train_routes — one batch from the same weights through the kernel route
                    (flash + pallas) and the plain route (xla + xla), dropout
                    0 and fixed draws: loss and gradient norm, the step time
-                   of each route, and torch.profiler over 2 training steps.
+                   of each route, and torch.profiler over 2 training steps;
+  8. dyna slice  — the same entry point with `--variant w_geo_dyna`,
+                   `method.policy_conv_impl=pallas` and the dynamic field's
+                   warm-up gate at step 2, full width otherwise: per step 4
+                   conv forward/dx launches and 2 dW launches on top of the
+                   flash ones, 1 + 1 blend launches before the gate and 2 + 2
+                   after it and after the resume; then `dyna_act`: the eval
+                   entry point on that checkpoint (2 conv and
+                   `transformer_depth` flash forwards per act);
+  9. conv_routes — one `w_geo_dyna` batch (gate open) through
+                   `policy_conv_impl="pallas"` and `"z2d"`: loss, gradient
+                   norm, step time and act latency of each, and
+                   torch.profiler over 2 training steps of the pallas route.
 Then one JSON line of kernel records, the card's name and power limit, and
 last, the device line.
 
@@ -406,38 +420,135 @@ def phase_golden() -> None:
             raise AssertionError(f"golden frame {name} disagrees: {res}")
 
 
-def phase_conv_yardsticks() -> None:
-    """Rows 5-6 of the kernel table (the Pallas 3³ conv and its weight
-    gradient, not on the w_geo path): F.conv3d and its weight gradient at
-    the 100³ tail convs' shapes in bf16, beside their bounds."""
+# The conv kernels against their plain versions, relative to max(1, max|plain|).
+# float32: plain FMA against a float32 matmul, other summation order. bfloat16:
+# both multiply the same bf16 values exactly and differ in the order and the
+# rounding of the float32 accumulation (the tensor cores do not round to
+# nearest): over 27·Ci terms in the forward and dx, over every voxel in dW,
+# where one bf16 step (2^-8) is what dW is rounded to on its way to the
+# parameter anyway.
+CONV_TOL = {"float32": {"fwd": 1e-5, "dw": 1e-5},
+            "bfloat16": {"fwd": 1e-3, "dw": 2.0 ** -8}}
+
+
+def phase_conv() -> dict:
+    """The 3³ conv kernels: forward, dx (the forward kernel on dy with the
+    taps flipped and Ci/Co swapped) and dW by the workspace and the resident
+    scheme, against the plain versions on the card, at small ragged shapes in
+    fp32 and bf16 and at the policy's two 100³ convs in bf16; the two dW
+    schemes bitwise equal across two runs; then the time of each kernel, of
+    its plain version and of the library call (F.conv3d, conv3d_weight: a
+    yardstick only) beside its bound."""
     import torch
     import torch.nn.functional as F
+    from manigaussian_tpu_torch.ops.conv3d import (conv3d_dw_reference,
+                                                   conv3d_dw_resident,
+                                                   conv3d_dw_workspace,
+                                                   conv3d_forward,
+                                                   conv3d_same_reference)
+
     gen = torch.Generator(device="cuda").manual_seed(2)
-    for label, ci, co in (("final 256→128", 256, 128), ("up0 post 128→128", 128, 128)):
-        x = torch.randn(1, ci, 100, 100, 100, generator=gen, device="cuda").to(
-            torch.bfloat16).contiguous(memory_format=torch.channels_last_3d)
-        wt = (0.05 * torch.randn(co, ci, 3, 3, 3, generator=gen, device="cuda")).to(
-            torch.bfloat16).contiguous(memory_format=torch.channels_last_3d)
-        gy = torch.randn(1, co, 100, 100, 100, generator=gen, device="cuda").to(
-            torch.bfloat16).contiguous(memory_format=torch.channels_last_3d)
-        flops = 2.0 * 100 ** 3 * 27 * ci * co
-        fwd_ms = cuda_ms(lambda: F.conv3d(x, wt, padding=1), iters=10)
-        dw_ms = cuda_ms(lambda: torch.nn.grad.conv3d_weight(x, wt.shape, gy,
-                                                            padding=1), iters=10)
-        b_fwd = bound(flops, 2.0 * (x.numel() + wt.numel() + gy.numel()),
-                      PEAK_FLOPS["bfloat16"])
-        b_dw = bound(flops, 2.0 * (x.numel() + gy.numel() + wt.numel()),
-                     PEAK_FLOPS["bfloat16"])
-        log("conv_yardstick", conv=label, shape=[1, 100, 100, 100, ci],
-            dtype="bfloat16", library_conv3d_ms=fwd_ms, bound_ms=b_fwd[0],
-            bound_by=b_fwd[1], library_conv3d_weight_ms=dw_ms,
-            weight_bound_ms=b_dw[0], weight_bound_by=b_dw[1])
+    rel = lambda got, ref: ((got.float() - ref).abs().max()
+                            / max(1.0, ref.abs().max().item())).item()
+
+    def check(label, dtype, b, d, h, w, ci, co):
+        dt = getattr(torch, dtype)
+        x = torch.randn(b, d, h, w, ci, generator=gen, device="cuda").to(dt)
+        wm = (0.05 * torch.randn(27, ci, co, generator=gen, device="cuda")).to(dt)
+        dy = torch.randn(b, d, h, w, co, generator=gen, device="cuda").to(dt)
+        w_flip = wm.flip(0).transpose(1, 2).contiguous()
+        y_ref = conv3d_same_reference(x, wm)
+        y_scale = max(1.0, y_ref.abs().max().item())
+        errs = {"fwd": rel(conv3d_forward(x, wm), y_ref),
+                "dx": rel(conv3d_forward(dy, w_flip),
+                          conv3d_same_reference(dy, w_flip))}
+        ref = conv3d_dw_reference(x, dy)
+        same = {}
+        for name, fn in (("dw_workspace", conv3d_dw_workspace),
+                         ("dw_resident", conv3d_dw_resident)):
+            got = fn(x, dy)
+            errs[name] = rel(got, ref)
+            same[name] = torch.equal(fn(x, dy), got)
+        torch.cuda.synchronize()
+        tol = CONV_TOL[dtype]
+        ok = (errs["fwd"] <= tol["fwd"] and errs["dx"] <= tol["fwd"]
+              and errs["dw_workspace"] <= tol["dw"]
+              and errs["dw_resident"] <= tol["dw"] and all(same.values()))
+        log("kernel_check", kernel="conv3d", conv=label, dtype=dtype,
+            shape=[b, d, h, w, ci], co=co, compared_with="the plain version",
+            err_over_scale=errs, tol=tol, bitwise_repeatable=same, ok=ok)
+        if not ok:
+            raise AssertionError(f"conv kernels disagree ({label}, {dtype}): "
+                                 f"{errs} {same}")
+        return x, wm, dy, errs, y_scale, max(1.0, ref.abs().max().item())
+
+    for shape in ((1, 5, 6, 7, 8, 16), (2, 9, 10, 11, 24, 40),
+                  (1, 12, 13, 14, 72, 136)):
+        for dtype in ("float32", "bfloat16"):
+            check("ragged", dtype, *shape)
+
+    records = {}
+    for label, ci, co in (("final 256→128", 256, 128),
+                          ("up0 post-resize 128→128", 128, 128)):
+        x, wm, dy, errs, y_scale, dw_scale = check(label, "bfloat16", 1, 100,
+                                                   100, 100, ci, co)
+        xl, gl = (t.permute(0, 4, 1, 2, 3) for t in (x, dy))   # NCDHW views
+        wl = wm.reshape(3, 3, 3, ci, co).permute(4, 3, 0, 1, 2).contiguous(
+            memory_format=torch.channels_last_3d)
+        w_flip = wm.flip(0).transpose(1, 2).contiguous()
+        flops = 2.0 * x.shape[:4].numel() * 27 * ci * co
+        el = x.element_size()
+        # each input read once, each output written once
+        nbytes = {"fwd": el * (x.numel() + wm.numel()) + 4.0 * dy.numel(),
+                  "dw": el * (x.numel() + dy.numel()) + 4.0 * wm.numel()}
+        lib_dw = lambda: torch.nn.grad.conv3d_weight(xl, wl.shape, gl, padding=1)
+        cases = (
+            ("conv3d_fwd", "fwd", errs["fwd"] * y_scale, {
+                "ms": lambda: conv3d_forward(x, wm),
+                "dx_ms": lambda: conv3d_forward(dy, w_flip),
+                "plain_ms": lambda: conv3d_same_reference(x, wm),
+                "library_ms": lambda: F.conv3d(xl, wl, padding=1)}),
+            ("conv3d_dw", "dw", errs["dw_workspace"] * dw_scale, {
+                "ms": lambda: conv3d_dw_workspace(x, dy),
+                "plain_ms": lambda: conv3d_dw_reference(x, dy),
+                "library_ms": lib_dw}),
+            ("conv3d_dw_resident", "dw", errs["dw_resident"] * dw_scale, {
+                "ms": lambda: conv3d_dw_resident(x, dy),
+                "plain_ms": lambda: conv3d_dw_reference(x, dy),
+                "library_ms": lib_dw}))
+        for name, kind, err, fns in cases:
+            times = {key: cuda_ms(fn, iters=2 if key == "plain_ms" else 10,
+                                  warmup=1 if key == "plain_ms" else 3)
+                     for key, fn in fns.items()}
+            bound_ms, bound_by = bound(flops, nbytes[kind], PEAK_FLOPS["bfloat16"])
+            log("kernel_time", kernel=name, conv=label,
+                shape=[1, 100, 100, 100, ci], co=co, dtype="bfloat16",
+                flops=flops, bytes=nbytes[kind], **times, bound_ms=bound_ms,
+                bound_by=bound_by, tflops=flops / times["ms"] / 1e9)
+            if ci == 256:   # the record's shape: the larger of the two convs
+                records[name] = {
+                    "name": name, "route": "cuda",
+                    "source": "manigaussian_tpu_torch/csrc/conv3d.cu",
+                    "replaces": {
+                        "conv3d_fwd": "manigaussian_tpu/ops/pallas_conv.py:126",
+                        "conv3d_dw": "manigaussian_tpu/ops/pallas_conv.py:158",
+                        "conv3d_dw_resident": "scripts/r4_pallas_dw_repro.py:120",
+                    }[name],
+                    "launches": None, "max_abs_err": err, **times,
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "shape": f"[1,100,100,100,{ci}] -> {co}, bfloat16"}
+            else:
+                records[name]["up0_128_to_128"] = {**times, "bound_ms": bound_ms}
+        del x, wm, dy, xl, gl, wl, w_flip, cases, fns, lib_dw
+        torch.cuda.empty_cache()
+    return records
 
 
 def phase_small() -> None:
     import torch
     from manigaussian_tpu_torch import config as C
     from manigaussian_tpu_torch.agents.bc_agent import ManiGaussianBCAgent
+    from manigaussian_tpu_torch.ops.conv3d import conv3d_forward
     from manigaussian_tpu_torch.ops.flash_attention import flash_self_attention
     from manigaussian_tpu_torch.ops.voxelize import voxelize
 
@@ -473,10 +584,13 @@ def phase_small() -> None:
     }
     micro = C.micro_variant("w_geo", camera_resolution=(16, 16))
     # (dtype, pad mode, conv impl): the default micro config, the reference's
-    # edge padding, and edge padding in bf16 (compared by the route rule;
-    # head dim 16, as the bf16 kernel takes multiples of 16)
+    # edge padding, edge padding in bf16 (compared by the route rule; head
+    # dim 16, as the bf16 kernel takes multiples of 16), and the conv kernels
+    # in fp32 and bf16
     for dtype, pad, conv in (("float32", "zero", "z2d"), ("float32", "edge", "xla"),
-                             ("bfloat16", "edge", "xla")):
+                             ("bfloat16", "edge", "xla"),
+                             ("float32", "zero", "pallas"),
+                             ("bfloat16", "zero", "pallas")):
         cfg = dataclasses.replace(micro, method=dataclasses.replace(
             micro.method, policy_dtype=dtype, policy_pad_mode=pad,
             policy_conv_impl=conv,
@@ -485,6 +599,7 @@ def phase_small() -> None:
         gpu = ManiGaussianBCAgent(cfg, device="cuda", seed=0)
         cpu = ManiGaussianBCAgent(cfg, device="cpu", seed=0)
         before = flash_self_attention.launches
+        conv_before = conv3d_forward.launches
         qg, qc = gpu.q_values(obs), cpu.q_values(obs)
         ag, ac = gpu.act(obs), cpu.act(obs)
         torch.cuda.synchronize()
@@ -498,7 +613,9 @@ def phase_small() -> None:
                    ("trans_coords", "rot_grip_indices", "collision_indices"))
         ok = (all(errs[n] <= tols[n] for n in errs)
               and (same or dtype != "float32")
-              and flash_self_attention.launches > before)
+              and flash_self_attention.launches > before
+              and (conv3d_forward.launches - conv_before
+                   == (4 if conv == "pallas" else 0)))
         log("small_reference", config=f"micro_variant(w_geo) {dtype} pad={pad} "
             f"conv={conv}, 16x16", max_abs_err=errs, tol=tols,
             same_discrete_action=same, ok=ok)
@@ -506,30 +623,14 @@ def phase_small() -> None:
             raise AssertionError(f"card and CPU disagree on the small input: {errs}")
 
 
-def phase_slice(counters: dict) -> dict:
+def drive_eval(counters: dict, logdir: str, demos: str):
+    """The port's eval entry point on the mock env from the newest checkpoint
+    under `logdir`, with the counts set to 0 just before and read just after.
+    Returns (act calls, launches, the result rows, seconds); raises unless
+    every act returned a finite [1, 9] action."""
     import torch
-    from manigaussian_tpu_torch import config as C
     from manigaussian_tpu_torch import eval as eval_cli
     from manigaussian_tpu_torch.agents.bc_agent import ManiGaussianBCAgent
-    from manigaussian_tpu_torch.agents.registry import create_agent
-    from manigaussian_tpu_torch.data.synthetic import generate_task
-    from manigaussian_tpu_torch.utils.checkpoint import save_checkpoint
-
-    task = "open_drawer"
-    base = C.w_geo()
-    cfg = dataclasses.replace(base, rlbench=dataclasses.replace(
-        base.rlbench, tasks=(task,)))
-    m = cfg.method
-    demos, logdir = os.path.join(WORK, "demos"), os.path.join(WORK, "logs")
-    t0 = time.time()
-    generate_task(demos, task, num_episodes=2, timesteps=16,
-                  h=cfg.rlbench.camera_resolution[0],
-                  w=cfg.rlbench.camera_resolution[1], nerf_views=1, nerf_hw=8)
-    agent = create_agent(cfg, device="cuda", seed=0)
-    save_checkpoint(logdir, 0, agent.qfn, cfg=cfg)
-    n_params = sum(p.numel() for p in agent.qfn.parameters())
-    del agent
-    setup_s = time.time() - t0
 
     calls, shapes, finite = [0], [], []
     orig_act = ManiGaussianBCAgent.act
@@ -554,9 +655,36 @@ def phase_slice(counters: dict) -> dict:
         launches = {name: fn.launches for name, fn in counters.items()}
     finally:
         ManiGaussianBCAgent.act = orig_act
+    if not (all(s == [1, 9] for s in shapes) and all(finite)):
+        raise AssertionError(f"act returned {shapes}, finite {finite}")
+    return calls[0], launches, rows, eval_s
 
-    expected = m.transformer_depth * calls[0]
-    ok = (calls[0] >= 2 and all(s == [1, 9] for s in shapes) and all(finite)
+
+def phase_slice(counters: dict) -> dict:
+    from manigaussian_tpu_torch import config as C
+    from manigaussian_tpu_torch.agents.registry import create_agent
+    from manigaussian_tpu_torch.data.synthetic import generate_task
+    from manigaussian_tpu_torch.utils.checkpoint import save_checkpoint
+
+    task = "open_drawer"
+    base = C.w_geo()
+    cfg = dataclasses.replace(base, rlbench=dataclasses.replace(
+        base.rlbench, tasks=(task,)))
+    m = cfg.method
+    demos, logdir = os.path.join(WORK, "demos"), os.path.join(WORK, "logs")
+    t0 = time.time()
+    generate_task(demos, task, num_episodes=2, timesteps=16,
+                  h=cfg.rlbench.camera_resolution[0],
+                  w=cfg.rlbench.camera_resolution[1], nerf_views=1, nerf_hw=8)
+    agent = create_agent(cfg, device="cuda", seed=0)
+    save_checkpoint(logdir, 0, agent.qfn, cfg=cfg)
+    n_params = sum(p.numel() for p in agent.qfn.parameters())
+    del agent
+    setup_s = time.time() - t0
+
+    calls, launches, rows, eval_s = drive_eval(counters, logdir, demos)
+    expected = m.transformer_depth * calls
+    ok = (calls >= 2
           and launches["flash_self_attention_fwd"] == expected
           and all(v == 0 for k, v in launches.items()
                   if k != "flash_self_attention_fwd")
@@ -565,7 +693,7 @@ def phase_slice(counters: dict) -> dict:
         latents=[m.num_latents, m.latent_dim], depth=m.transformer_depth,
         heads=[m.latent_heads, m.latent_dim_head], dtype=m.policy_dtype,
         camera=list(cfg.rlbench.camera_resolution), params=n_params,
-        act_calls=calls[0], launches=launches, expected_flash=expected,
+        act_calls=calls, launches=launches, expected_flash=expected,
         rows=rows, setup_s=setup_s, eval_s=eval_s, ok=ok)
     if not ok:
         raise AssertionError("the act/eval slice failed its checks")
@@ -715,98 +843,149 @@ def micro_train_batch(b: int = 2, hw: int = 32, seed: int = 0) -> dict:
         "nerf_target_rgb": rng.uniform(size=(b, hw, hw, 3)).astype(f),
         "nerf_target_pose": np.tile(np.eye(4, dtype=f), (b, 1, 1)),
         "nerf_target_intrinsic": np.tile(intr, (b, 1, 1)),
-    }
+        # the next frame (read by the dynamic-field tier only)
+        "nerf_next_target_rgb": rng.uniform(size=(b, hw, hw, 3)).astype(f),
+        "nerf_next_target_pose": np.tile(np.eye(4, dtype=f), (b, 1, 1)),
+        "nerf_next_target_intrinsic": np.tile(intr, (b, 1, 1)),
+    } | {"action": (0.1 * rng.standard_normal((b, 8))).astype(f)}
 
 
 def phase_small_train(counters: dict) -> None:
-    """The micro w_geo config's `update`, card against CPU: fp32, dropout
-    rates 0, the same augmentation draws. Losses within 1e-4·max(1, |loss|),
-    every parameter gradient within 1e-3·max|g| of its leaf plus 1e-5 (the
-    floor covers a leaf whose exact gradient is zero, such as the trans
-    decoder's bias: the gradient of a bias shared by all logits of a softmax
-    is Σp − 1, rounding noise on both devices), and every flash and blend
-    counter advanced."""
+    """The micro configs' `update`, card against CPU: fp32, dropout rates 0,
+    the same augmentation draws; `w_geo` on the default conv route, and
+    `w_geo_dyna` with `policy_conv_impl="pallas"` and the warm-up gate open
+    (two renders, the deformation field, the conv kernels in fp32). Losses
+    within 1e-4·max(1, |loss|), every parameter gradient within 1e-3·max|g|
+    of its leaf plus 1e-5 (the floor covers a leaf whose exact gradient is
+    zero, such as the trans decoder's bias: the gradient of a bias shared by
+    all logits of a softmax is Σp − 1, rounding noise on both devices), and
+    every counter of the route advanced."""
     import torch
     from manigaussian_tpu_torch import config as C
     from manigaussian_tpu_torch.agents.bc_agent import ManiGaussianBCAgent
     from manigaussian_tpu_torch.ops.augmentation import sample_se3_draws
 
-    cfg = C.micro_variant("w_geo")
-    cfg = dataclasses.replace(cfg, method=dataclasses.replace(
-        cfg.method, input_dropout=0.0, attn_dropout=0.0))
-    batch = micro_train_batch()
-    draws = sample_se3_draws(torch.Generator().manual_seed(3), 2,
-                             cfg.method.aug_rpy, cfg.method.rotation_resolution)
-    agents = {dev: ManiGaussianBCAgent(cfg, device=dev, seed=0)
-              for dev in ("cuda", "cpu")}
-    before = {k: fn.launches for k, fn in counters.items()}
-    metrics = {dev: {k: float(v) for k, v in a.update(
-        batch, torch.Generator().manual_seed(0), draws=draws).items()}
-        for dev, a in agents.items()}
-    torch.cuda.synchronize()
-    advanced = {k: fn.launches - before[k] for k, fn in counters.items()}
-    loss_err = {k: abs(metrics["cuda"][k] - v) / max(1.0, abs(v))
-                for k, v in metrics["cpu"].items()}
-    grad_err = {}
-    for (name, pg), pc in zip(agents["cuda"].qfn.named_parameters(),
-                              agents["cpu"].qfn.parameters()):
-        ref = pc.grad if pc.grad is not None else torch.zeros_like(pc)
-        got = pg.grad.cpu() if pg.grad is not None else torch.zeros_like(pc)
-        grad_err[name] = ((got - ref).abs().max().item()
-                          / (1e-3 * ref.abs().max().item() + 1e-5))
-    worst = sorted(grad_err.items(), key=lambda kv: -kv[1])[:5]
-    ok = (all(e <= 1e-4 for e in loss_err.values())
-          and all(e <= 1.0 for e in grad_err.values())
-          and all(v > 0 for v in advanced.values()))
-    log("small_train", config="micro_variant(w_geo) fp32, dropout 0, batch 2",
-        losses_cuda=metrics["cuda"], loss_rel_err=loss_err,
-        worst_grad_err_over_tol=worst, launches=advanced,
-        tol={"loss": "1e-4·max(1,|loss|)",
-             "grad": "1e-3·max|g| per leaf + 1e-5"},
-        ok=ok)
-    if not ok:
-        raise AssertionError(f"the micro update disagrees between card and CPU: "
-                             f"{loss_err} {worst} {advanced}")
+    conv = ("conv3d_fwd", "conv3d_dw", "conv3d_dw_resident")
+    for variant, conv_impl, idle in (("w_geo", "z2d", conv),
+                                     ("w_geo_dyna", "pallas", conv[2:])):
+        cfg = C.micro_variant(variant)
+        nr = cfg.method.neural_renderer
+        cfg = dataclasses.replace(cfg, method=dataclasses.replace(
+            cfg.method, input_dropout=0.0, attn_dropout=0.0,
+            policy_conv_impl=conv_impl, neural_renderer=dataclasses.replace(
+                nr, next_mlp=dataclasses.replace(nr.next_mlp, warm_up=0))))
+        batch = micro_train_batch()
+        draws = sample_se3_draws(torch.Generator().manual_seed(3), 2,
+                                 cfg.method.aug_rpy,
+                                 cfg.method.rotation_resolution)
+        agents = {dev: ManiGaussianBCAgent(cfg, device=dev, seed=0)
+                  for dev in ("cuda", "cpu")}
+        before = {k: fn.launches for k, fn in counters.items()}
+        metrics = {dev: {k: float(v) for k, v in a.update(
+            batch, torch.Generator().manual_seed(0), draws=draws).items()}
+            for dev, a in agents.items()}
+        torch.cuda.synchronize()
+        advanced = {k: fn.launches - before[k] for k, fn in counters.items()}
+        loss_err = {k: abs(metrics["cuda"][k] - v) / max(1.0, abs(v))
+                    for k, v in metrics["cpu"].items()}
+        grad_err = {}
+        for (name, pg), pc in zip(agents["cuda"].qfn.named_parameters(),
+                                  agents["cpu"].qfn.parameters()):
+            ref = pc.grad if pc.grad is not None else torch.zeros_like(pc)
+            got = pg.grad.cpu() if pg.grad is not None else torch.zeros_like(pc)
+            grad_err[name] = ((got - ref).abs().max().item()
+                              / (1e-3 * ref.abs().max().item() + 1e-5))
+        worst = sorted(grad_err.items(), key=lambda kv: -kv[1])[:5]
+        ok = (all(e <= 1e-4 for e in loss_err.values())
+              and all(e <= 1.0 for e in grad_err.values())
+              and all((v == 0) == (k in idle) for k, v in advanced.items())
+              and (variant == "w_geo" or (metrics["cuda"]["dyna_loss"] > 0
+                                          and advanced["blend_fwd"] == 2)))
+        log("small_train", config=f"micro_variant({variant}) fp32, dropout 0, "
+            f"batch 2, conv={conv_impl}",
+            losses_cuda=metrics["cuda"], loss_rel_err=loss_err,
+            worst_grad_err_over_tol=worst, launches=advanced,
+            tol={"loss": "1e-4·max(1,|loss|)",
+                 "grad": "1e-3·max|g| per leaf + 1e-5"},
+            ok=ok)
+        if not ok:
+            raise AssertionError(f"the micro update ({variant}) disagrees "
+                                 f"between card and CPU: {loss_err} {worst} "
+                                 f"{advanced}")
 
 
-def w_geo_train_config(task: str):
-    """The full-width w_geo config for the training phases: one task, two
-    synthetic demos, in-memory replay, logs and checkpoints every step."""
-    from manigaussian_tpu_torch import config as C
-    base = C.w_geo()
-    return [f"rlbench.tasks=[{task}]", "rlbench.demos=2",
-            "replay.use_disk=false", "framework.log_freq=1",
-            "framework.save_freq=1000", "framework.num_weights_to_keep=2"], base
+TASK = "open_drawer"
+TRAIN_OVERRIDES = [f"rlbench.tasks=[{TASK}]", "rlbench.demos=2",
+                   "replay.use_disk=false", "framework.log_freq=1",
+                   "framework.save_freq=1000", "framework.num_weights_to_keep=2"]
+# the dynamic-field tier on the conv kernels, its warm-up gate at step 2
+DYNA_WARM_UP = 2
+DYNA_OVERRIDES = ["method.policy_conv_impl=pallas",
+                  f"method.neural_renderer.next_mlp.warm_up={DYNA_WARM_UP}"]
 
 
-def phase_train_slice(counters: dict, steps: int = 8) -> dict:
-    """The training path at full w_geo width through the port's train entry
-    point (main()), then a resume from its checkpoint. The counts are set to
-    0 just before the first run and read just after."""
+def train_config(variant: str, overrides=()):
+    """The full-width config of the training phases, as the train entry point
+    builds it: one task, two synthetic demos, in-memory replay, logs every
+    step."""
+    from manigaussian_tpu_torch.utils.config_io import load_config
+    return load_config(None, [*TRAIN_OVERRIDES, *overrides], variant=variant)
+
+
+def expected_launches(m, step: int) -> dict:
+    """Kernel launches of one training step at batch 1: the flash forward and
+    backward once per self-attention layer; one render, and a second one of
+    the next frame once the dynamic field's warm-up gate is open; with the
+    conv kernels, the forward and dx of the two full-resolution convs and one
+    dW (workspace scheme) each."""
+    nr = m.neural_renderer
+    renders = 2 if nr.use_dynamic_field and step >= nr.next_mlp.warm_up else 1
+    pallas = m.policy_conv_impl == "pallas"
+    return {"flash_self_attention_fwd": m.transformer_depth,
+            "flash_self_attention_bwd": m.transformer_depth,
+            "blend_fwd": renders, "blend_bwd": renders,
+            "conv3d_fwd": 4 if pallas else 0, "conv3d_dw": 2 if pallas else 0,
+            "conv3d_dw_resident": 0}
+
+
+def phase_train_slice(counters: dict, variant: str = "w_geo", overrides=(),
+                      steps: int = 6, demos: str = None) -> dict:
+    """The training path at full width through the port's train entry point
+    (main()), then a resume from its checkpoint for 2 more steps. The counts
+    are set to 0 just before the first run and read just after it."""
     import numpy as np
     import torch
     from manigaussian_tpu_torch import train as train_cli
     from manigaussian_tpu_torch.agents.bc_agent import ManiGaussianBCAgent
     from manigaussian_tpu_torch.data.synthetic import generate_task
+    from manigaussian_tpu_torch.rendering.neural_renderer import NeuralRenderer
     from manigaussian_tpu_torch.utils.checkpoint import list_checkpoints
 
-    task = "open_drawer"
-    overrides, cfg = w_geo_train_config(task)
+    cfg = train_config(variant, overrides)
     m = cfg.method
-    demos = os.path.join(WORK, "train_demos")
-    logdir = os.path.join(WORK, "train_logs")
+    logdir = os.path.join(WORK, f"train_logs_{variant}")
     t0 = time.time()
-    generate_task(demos, task, num_episodes=2, timesteps=16,
-                  h=cfg.rlbench.camera_resolution[0],
-                  w=cfg.rlbench.camera_resolution[1], nerf_views=3,
-                  nerf_hw=m.neural_renderer.image_height)
+    if demos is None:
+        demos = os.path.join(WORK, "train_demos")
+        generate_task(demos, TASK, num_episodes=2, timesteps=16,
+                      h=cfg.rlbench.camera_resolution[0],
+                      w=cfg.rlbench.camera_resolution[1], nerf_views=3,
+                      nerf_hw=m.neural_renderer.image_height)
     setup_s = time.time() - t0
 
-    per_step, step_ms, metrics_seen = [], [], []
+    per_step, expect, step_ms, metrics_seen = [], [], [], []
+    overflow, rendered = [], []     # per step, per render: (splats, gaussians)
     orig_update = ManiGaussianBCAgent.update
+    orig_render = NeuralRenderer._render
+
+    def watched_render(self, params, cameras):
+        out = orig_render(self, params, cameras)
+        rendered.append(out[2:])
+        return out
 
     def counted_update(self, batch, generator, draws=None):
         before = {k: fn.launches for k, fn in counters.items()}
+        expect.append(expected_launches(m, self.step))
         torch.cuda.synchronize()
         t_start = time.perf_counter()
         out = orig_update(self, batch, generator, draws)
@@ -814,67 +993,99 @@ def phase_train_slice(counters: dict, steps: int = 8) -> dict:
         step_ms.append((time.perf_counter() - t_start) * 1e3)
         per_step.append({k: fn.launches - before[k] for k, fn in counters.items()})
         metrics_seen.append({k: float(v) for k, v in out.items()})
+        overflow.append([[float(v) for v in pair] for pair in rendered])
+        rendered.clear()
         return out
 
+    argv = ["--variant", variant, "--demo-root", demos, "--logdir", logdir,
+            *TRAIN_OVERRIDES, *overrides]
     ManiGaussianBCAgent.update = counted_update
+    NeuralRenderer._render = watched_render
     try:
         for fn in counters.values():
             fn.launches = 0
         torch.cuda.reset_peak_memory_stats()
         t0 = time.time()
-        train_cli.main(["--demo-root", demos, "--logdir", logdir,
-                        *overrides, f"framework.training_iterations={steps}"])
+        train_cli.main([*argv, f"framework.training_iterations={steps}"])
         torch.cuda.synchronize()
         train_s = time.time() - t0
         launches = {k: fn.launches for k, fn in counters.items()}
         peak = torch.cuda.max_memory_allocated()
         ckpts = list_checkpoints(os.path.join(logdir, "seed0"))
         n_first = len(per_step)
-        train_cli.main(["--demo-root", demos, "--logdir", logdir, *overrides,
-                        f"framework.training_iterations={steps + 1}",
+        train_cli.main([*argv, f"framework.training_iterations={steps + 1}",
                         "framework.load_existing_weights=true"])
         torch.cuda.synchronize()
     finally:
         ManiGaussianBCAgent.update = orig_update
+        NeuralRenderer._render = orig_render
 
-    expect = {"flash_self_attention_fwd": m.transformer_depth,
-              "flash_self_attention_bwd": m.transformer_depth,
-              "blend_fwd": 1, "blend_bwd": 1}
     finite = all(np.isfinite(v) for row in metrics_seen for v in row.values())
     heads = ("total_loss", "bc_loss", "trans_loss", "rot_loss", "grip_loss",
-             "collision_loss", "rgb_loss", "psnr", "overflow_splats",
-             "overflow_gaussians")
+             "collision_loss", "rgb_loss", "dyna_loss", "psnr",
+             "overflow_splats", "overflow_gaussians")
+    dyna = m.neural_renderer.use_dynamic_field
     ok = (n_first == steps and len(per_step) == steps + 2 and finite
-          and all(row == expect for row in per_step)
-          and all(h in metrics_seen[0] for h in heads)
+          and per_step == expect
+          and [len(o) for o in overflow] == [e["blend_fwd"] for e in expect]
+          and all(h in row for h in heads for row in metrics_seen)
+          and all((row["dyna_loss"] > 0) == dyna for row in metrics_seen)
           and ckpts == [steps - 1]
-          and sum(launches.values()) == steps * sum(expect.values()))
+          and launches == {k: sum(row[k] for row in expect[:n_first])
+                           for k in counters})
     warm = step_ms[2:n_first]
-    log("train_slice", config="w_geo", voxel=m.voxel_sizes[0],
+    log("train_slice", config=variant, overrides=list(overrides),
+        voxel=m.voxel_sizes[0],
         latents=[m.num_latents, m.latent_dim], depth=m.transformer_depth,
         heads=[m.latent_heads, m.latent_dim_head], dtype=m.policy_dtype,
+        conv_impl=m.policy_conv_impl,
         image=[m.neural_renderer.image_height, m.neural_renderer.image_width],
         gaussians=int(np.prod(cfg.rlbench.camera_resolution)),
         dropout=[m.input_dropout, m.attn_dropout], batch=cfg.replay.batch_size,
         steps=steps, resumed_steps=len(per_step) - n_first, checkpoints=ckpts,
         launches=launches, launches_per_step=per_step, expected_per_step=expect,
         losses_first=metrics_seen[0], losses_last=metrics_seen[n_first - 1],
-        overflow_per_step=[[r["overflow_splats"], r["overflow_gaussians"]]
-                           for r in metrics_seen],
+        overflow_per_step_and_render=overflow,
         step_ms=step_ms, step_ms_median_after_2=statistics.median(warm),
         peak_device_bytes=peak, setup_s=setup_s, train_s=train_s, ok=ok)
     if not ok:
-        raise AssertionError("the training slice failed its checks")
+        raise AssertionError(f"the {variant} training slice failed its checks")
     return {"launches": launches, "step_ms": statistics.median(warm),
-            "demos": demos}
+            "demos": demos, "logdir": logdir, "cfg": cfg}
 
 
-def phase_train_routes(demos: str) -> None:
-    """One batch from the same weights through the kernel route (flash +
-    pallas) and the plain route (xla + xla), dropout 0, the same draws:
-    loss within 5e-2·max(1, |loss|), global gradient norm within 5e-2
-    relative; the step time of each route (alternating); then
-    torch.profiler over 2 training steps of the kernel route."""
+def phase_dyna_slice(counters: dict, demos: str) -> dict:
+    """This slice's main path: `w_geo_dyna` with `policy_conv_impl="pallas"`
+    at full width, the warm-up gate at step 2: 6 training steps through the
+    train entry point, a checkpoint, a resume for 2 more steps (one render a
+    step before the gate, two after it and after the resume); then `act`
+    through the eval entry point on that checkpoint: per act, the conv
+    forward twice and the flash forward once per self-attention layer."""
+    tr = phase_train_slice(counters, "w_geo_dyna", DYNA_OVERRIDES, demos=demos)
+    m = tr["cfg"].method
+    calls, launches, rows, eval_s = drive_eval(
+        counters, os.path.join(tr["logdir"], "seed0"), demos)
+    expect = {k: 0 for k in counters} | {
+        "flash_self_attention_fwd": m.transformer_depth * calls,
+        "conv3d_fwd": 2 * calls}
+    ok = (calls >= 2 and launches == expect and len(rows) == 1
+          and "eval_envs/return" in rows[0])
+    log("dyna_act", config="w_geo_dyna", conv_impl=m.policy_conv_impl,
+        act_calls=calls, launches=launches, expected=expect, rows=rows,
+        eval_s=eval_s, ok=ok)
+    if not ok:
+        raise AssertionError("act on the w_geo_dyna checkpoint failed its checks")
+    return {**tr, "act_launches": launches, "act_calls": calls}
+
+
+def phase_train_routes(demos: str, label: str, variant: str, overrides,
+                       routes: dict, profile: str) -> None:
+    """One batch from the same weights through two routes (`routes`: name →
+    fields of the method config and of its renderer), dropout 0, the same
+    draws: loss within ROUTE_TOL·max(1, |loss|), global gradient norm within
+    ROUTE_TOL relative; the step time (alternating) and the act latency of
+    each route; then torch.profiler over 2 training steps of route `profile`.
+    """
     import numpy as np
     import torch
     from manigaussian_tpu_torch.agents.bc_agent import ManiGaussianBCAgent
@@ -883,12 +1094,11 @@ def phase_train_routes(demos: str) -> None:
     from manigaussian_tpu_torch.data.replay import TaskUniformReplay
     from manigaussian_tpu_torch.ops.augmentation import sample_se3_draws
 
-    task = "open_drawer"
-    _, cfg = w_geo_train_config(task)
+    cfg = train_config(variant, overrides)
     cfg = dataclasses.replace(cfg, method=dataclasses.replace(
         cfg.method, input_dropout=0.0, attn_dropout=0.0))
     replay = TaskUniformReplay()
-    fill_replay(replay, demos, task, 2, cfg.rlbench.cameras,
+    fill_replay(replay, demos, TASK, 2, cfg.rlbench.cameras,
                 cfg.rlbench.scene_bounds, cfg.method.voxel_sizes[0],
                 cfg.method.rotation_resolution, cfg.rlbench.episode_length,
                 create_language_model("stub"))
@@ -897,22 +1107,24 @@ def phase_train_routes(demos: str) -> None:
     draws = sample_se3_draws(torch.Generator().manual_seed(5), 1,
                              cfg.method.aug_rpy, cfg.method.rotation_resolution)
     agents = {}
-    for route, (attn, blend) in (("kernel", ("flash", "pallas")),
-                                 ("plain", ("xla", "xla"))):
-        m = dataclasses.replace(cfg.method, policy_attn_impl=attn,
+    for route, (method_kw, renderer_kw) in routes.items():
+        m = dataclasses.replace(cfg.method, **method_kw,
                                 neural_renderer=dataclasses.replace(
-                                    cfg.method.neural_renderer, backend=blend))
+                                    cfg.method.neural_renderer, **renderer_kw))
         agents[route] = ManiGaussianBCAgent(dataclasses.replace(cfg, method=m),
                                             device="cuda", seed=0)
-    loss, gnorm = {}, {}
+    first, second = routes
+    loss, gnorm, heads = {}, {}, {}
     for route, a in agents.items():
         out = a.update(batch, torch.Generator().manual_seed(0), draws=draws)
         loss[route] = float(out["total_loss"])
+        heads[route] = {k: float(out[k]) for k in ("bc_loss", "rgb_loss",
+                                                   "dyna_loss")}
         gnorm[route] = float(torch.sqrt(sum((p.grad.float() ** 2).sum()
                                             for p in a.qfn.parameters()
                                             if p.grad is not None)))
-    loss_diff = abs(loss["kernel"] - loss["plain"])
-    gnorm_rel = abs(gnorm["kernel"] - gnorm["plain"]) / gnorm["plain"]
+    loss_diff = abs(loss[first] - loss[second])
+    gnorm_rel = abs(gnorm[first] - gnorm[second]) / gnorm[second]
 
     def step(a):
         torch.cuda.synchronize()
@@ -921,29 +1133,44 @@ def phase_train_routes(demos: str) -> None:
                        draws=draws)["total_loss"])
         return (time.perf_counter() - t0) * 1e3
 
+    def act(a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a.act(batch).continuous_action.cpu()
+        return (time.perf_counter() - t0) * 1e3
+
     for _ in range(2):
         for a in agents.values():
             step(a)
+            act(a)
     lat = {r: [] for r in agents}
+    act_lat = {r: [] for r in agents}
     for _ in range(5):
         for r, a in agents.items():
             lat[r].append(step(a))
-    ok = (np.isfinite(loss["kernel"]) and np.isfinite(loss["plain"])
-          and loss_diff <= ROUTE_TOL * max(1.0, abs(loss["plain"]))
+    for _ in range(8):
+        for r, a in agents.items():
+            act_lat[r].append(act(a))
+    ok = (all(np.isfinite(v) for v in loss.values())
+          and loss_diff <= ROUTE_TOL * max(1.0, abs(loss[second]))
           and gnorm_rel <= ROUTE_TOL)
-    log("train_routes", loss=loss, loss_abs_diff=loss_diff, grad_norm=gnorm,
+    log(label, config=variant, overrides=list(overrides),
+        routes={r: {**kw[0], **kw[1]} for r, kw in routes.items()},
+        loss=loss, loss_heads=heads, loss_abs_diff=loss_diff, grad_norm=gnorm,
         grad_norm_rel_diff=gnorm_rel, tol=ROUTE_TOL,
         step_ms_median={r: statistics.median(v) for r, v in lat.items()},
-        step_ms=lat, ok=ok)
+        step_ms=lat,
+        act_ms_median={r: statistics.median(v) for r, v in act_lat.items()},
+        ok=ok)
     if not ok:
-        raise AssertionError(f"kernel and plain training routes disagree: "
+        raise AssertionError(f"the training routes of {label} disagree: "
                              f"{loss} {gnorm}")
-    kernel = agents["kernel"]
+    kept = agents[profile]
     del agents
     torch.cuda.empty_cache()
-    phase_profile(lambda: float(kernel.update(
+    phase_profile(lambda: float(kept.update(
         batch, torch.Generator().manual_seed(0), draws=draws)["total_loss"]),
-        "w_geo training step", calls=2)
+        f"{variant} training step, route {profile}", calls=2)
 
 
 def main() -> int:
@@ -959,6 +1186,9 @@ def main() -> int:
     try:
         from manigaussian_tpu_torch.ops.blend import (blend_backward,
                                                       blend_forward)
+        from manigaussian_tpu_torch.ops.conv3d import (conv3d_dw_resident,
+                                                       conv3d_dw_workspace,
+                                                       conv3d_forward)
         from manigaussian_tpu_torch.ops.flash_attention import (
             flash_self_attention, flash_self_attention_backward)
     except ImportError as e:
@@ -972,20 +1202,43 @@ def main() -> int:
     os.makedirs(WORK)
     counters = {"flash_self_attention_fwd": flash_self_attention,
                 "flash_self_attention_bwd": flash_self_attention_backward,
-                "blend_fwd": blend_forward, "blend_bwd": blend_backward}
+                "blend_fwd": blend_forward, "blend_bwd": blend_backward,
+                "conv3d_fwd": conv3d_forward, "conv3d_dw": conv3d_dw_workspace,
+                "conv3d_dw_resident": conv3d_dw_resident}
 
     t_start = time.time()
     phase_build()
-    records = {**phase_flash(), **phase_blend()}
-    phase_conv_yardsticks()
+    records = {**phase_flash(), **phase_blend(), **phase_conv()}
     phase_small()
     phase_small_train(counters)
     sl = phase_slice(counters)
     phase_routes(sl["cfg"], sl["logdir"], sl["demos"])
     tr = phase_train_slice(counters)
-    phase_train_routes(tr["demos"])
+    phase_train_routes(
+        tr["demos"], "train_routes", "w_geo", (),
+        {"kernel": ({"policy_attn_impl": "flash"}, {"backend": "pallas"}),
+         "plain": ({"policy_attn_impl": "xla"}, {"backend": "xla"})}, "kernel")
+    dy = phase_dyna_slice(counters, tr["demos"])
+    phase_train_routes(
+        tr["demos"], "conv_routes", "w_geo_dyna",
+        ("method.neural_renderer.next_mlp.warm_up=0",),
+        {"pallas": ({"policy_conv_impl": "pallas"}, {}),
+         "z2d": ({"policy_conv_impl": "z2d"}, {})}, "pallas")
+    # launches on the main paths, each read just after its run: this slice's
+    # training run (`launches`), and every path by name. A kernel of a path
+    # that the path never launched fails the run; the resident dW scheme is
+    # on no path (the backward uses the workspace scheme) and is held to its
+    # plain version and timed in phase `conv` only.
+    paths = {"act_w_geo": sl["launches"], "train_w_geo": tr["launches"],
+             "train_w_geo_dyna": dy["launches"],
+             "act_w_geo_dyna": dy["act_launches"]}
+    off_path = {"conv3d_dw_resident"}
     for name, rec in records.items():
-        rec["launches"] = tr["launches"][name]
+        rec["launches"] = dy["launches"][name]
+        rec["launches_by_path"] = {p: c[name] for p, c in paths.items()}
+        if (rec["launches"] == 0) != (name in off_path):
+            raise AssertionError(f"kernel {name}: {rec['launches']} launches "
+                                 "on the main path")
     log("done", seconds=round(time.time() - t_start, 3))
 
     print(json.dumps({"kernels": list(records.values())}))

@@ -5,8 +5,10 @@ package; the two files hold the same dataclasses, variants and defaults
 (tests/test_torch_act_eval.py holds them equal). The TPU-only knobs are
 accepted as they are: `policy_unet_impl="packed"` and
 `policy_conv_impl="z2d"` name the same math as the plain paths the port
-runs, and `policy_attn_impl="flash"` routes the latent self-attention
-through the port's CUDA kernel (ops/flash_attention.py).
+runs, `policy_attn_impl="flash"` routes the latent self-attention
+through the port's CUDA kernel (ops/flash_attention.py), and
+`policy_conv_impl="pallas"` routes the two full-resolution 3³ convs through
+the port's CUDA conv kernels (ops/conv3d.py).
 
 Mirrors the reference Hydra config keys (`conf/config.yaml`,
 `conf/method/ManiGaussian_BC.yaml`, `conf/eval.yaml`) so the four launch-variant

@@ -34,6 +34,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from manigaussian_tpu_torch.ops.conv3d import conv3d_same_batched
+
 LRELU_SLOPE = 0.02  # network_utils.py:14
 NORM_EPS = 1e-6     # flax.linen LayerNorm / GroupNorm default
 
@@ -150,9 +152,13 @@ class Conv3DBlock(nn.Module):
 
     The JAX block has three impls of the 3³ stride-1 zero-pad conv ('xla',
     'z2d', 'pallas'); 'xla' and 'z2d' are the same math and both become
-    `F.conv3d` here. The explicit impls accumulate in float32 and add the
-    float32 bias before casting to `dtype`; 'xla' adds the bias in `dtype`,
-    and that difference in rounding is kept.
+    `F.conv3d` here. 'pallas' is `ops/conv3d.conv3d_same_batched` on the
+    channels-last input as it is: the hand-written kernels on a CUDA tensor,
+    their plain version on a CPU tensor. The explicit impls accumulate in
+    float32 and add the float32 bias before casting to `dtype`; 'xla' adds
+    the bias in `dtype`, and that difference in rounding is kept. With
+    'pallas' the weight gradient is rounded to `dtype` before it reaches the
+    float32 parameter, as in the JAX custom VJP.
     """
 
     def __init__(self, in_channels: int, out_channels: int,
@@ -162,10 +168,6 @@ class Conv3DBlock(nn.Module):
                  dtype: torch.dtype = torch.float32, pad_mode: str = "edge",
                  impl: str = "xla"):
         super().__init__()
-        if impl == "pallas":
-            raise NotImplementedError(
-                "policy_conv_impl='pallas' (the TPU conv kernel) is not "
-                "ported yet; use 'z2d' or 'xla'")
         k = kernel_size
         self.weight = nn.Parameter(torch.empty(out_channels, in_channels, k, k, k))
         self.bias = nn.Parameter(torch.empty(out_channels))
@@ -184,6 +186,9 @@ class Conv3DBlock(nn.Module):
         w = self.weight.to(dt)
         fast = (self.impl != "xla" and self.kernel_size == 3
                 and self.strides == 1 and pad == 1 and self.pad_mode != "edge")
+        if fast and self.impl == "pallas":
+            y = conv3d_same_batched(x.to(dt), w.permute(2, 3, 4, 1, 0))
+            return act(y + self.bias).to(dt)
         if fast:
             y = F.conv3d(to_ncdhw(x.to(dt)), w, padding=1).float()
             y = act(y + self.bias[:, None, None, None]).to(dt)

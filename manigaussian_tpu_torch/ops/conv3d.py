@@ -1,0 +1,249 @@
+"""3³ stride-1 zero-SAME convolution of channels-last volumes: the wrappers of
+the CUDA kernels (forward/dx and two weight-gradient schemes) and their
+plain PyTorch versions.
+
+Counterpart of `manigaussian_tpu/ops/pallas_conv.py`. The kernels
+(`csrc/conv3d.cu`) replace its TPU kernels `_fwd_kernel` (through
+`_conv3d_raw`) and `_dw_kernel` (through `_conv3d_dw`), and the two other
+accumulation schemes of the weight gradient in
+`scripts/r4_pallas_dw_repro.py` (`_dw_kernel_stacked`, `_dw_kernel_scratch`);
+the bounds and the design are noted in the source.
+
+`conv3d_same` is one autograd Function on any device. Its pieces
+(`conv3d_forward`, `conv3d_dw`) launch the kernels on CUDA tensors and run
+the plain versions on CPU tensors, so the types round at the same places on
+both (as in the JAX custom VJP): the weights are cast to x's dtype, y comes
+out float32; in the backward the cotangent is cast to x's dtype, dx (the
+forward kernel on it with the taps flipped and Ci/Co swapped) is cast back to
+x's dtype, and dW is cast to the weights' dtype.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from manigaussian_tpu_torch.ops import _cuda
+
+# The scheme `conv3d_same`'s backward uses: the faster one at the policy's
+# two 100³ convolutions in bf16 (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py
+# phase `conv`): workspace 8.39 / 4.13 ms against resident 18.94 / 15.96 ms
+# at 256→128 / 128→128.
+DW_SCHEME = "workspace"
+DW_SCHEMES = ("workspace", "resident")
+# The workspace scheme cuts the voxels into slabs until the grid has this many
+# CTAs for each SM (one is resident at a time, so the last wave of a short
+# grid leaves SMs idle: 4 a SM took 9.0 ms where 16 take 7.6 ms at 256→128),
+# at most MAX_SLABS (a workspace of 64 × 27·Ci·Co floats, 226 MB at 256→128).
+MAX_SLABS = 64
+CTAS_PER_SM = 16
+VOXELS_PER_STEP = 64   # kDwVox in csrc/conv3d.cu: the kernels' step over voxels
+
+
+def _padded(x: torch.Tensor) -> torch.Tensor:
+    return F.pad(x, (0, 0, 1, 1, 1, 1, 1, 1))
+
+
+def _taps(xp: torch.Tensor, d: int, h: int, w: int):
+    """The 27 shifted views of a zero-padded [B, D+2, H+2, W+2, C] volume, in
+    the order of the weights' first axis."""
+    for oz in range(3):
+        for oy in range(3):
+            for ox in range(3):
+                yield xp[:, oz:oz + d, oy:oy + h, ox:ox + w]
+
+
+def conv3d_same_reference(x: torch.Tensor, wm: torch.Tensor) -> torch.Tensor:
+    """The plain version of the forward: x [B, D, H, W, Ci], wm [27, Ci, Co]
+    of x's dtype → float32 [B, D, H, W, Co]. 27 shifted matmuls of the
+    operands cast to float32 (a product of two bf16 values is exact in
+    float32), summed in float32."""
+    _, d, h, w, _ = x.shape
+    xp = _padded(x).float()
+    wf = wm.to(x.dtype).float()
+    y = None
+    for o, tap in enumerate(_taps(xp, d, h, w)):
+        t = torch.matmul(tap, wf[o])
+        y = t if y is None else y + t
+    return y
+
+
+def conv3d_dw_reference(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """The plain version of the weight gradient: x [B, D, H, W, Ci], dy
+    [B, D, H, W, Co] of x's dtype → float32 [27, Ci, Co]."""
+    _, d, h, w, ci = x.shape
+    xp = _padded(x).float()
+    g = dy.to(x.dtype).float().reshape(-1, dy.shape[-1])
+    return torch.stack([torch.matmul(tap.reshape(-1, ci).t(), g)
+                        for tap in _taps(xp, d, h, w)])
+
+
+def _library() -> ctypes.CDLL:
+    lib = _cuda.load("conv3d")
+    if lib.conv3d_fwd_bf16.argtypes is None:
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        for fn in (lib.conv3d_fwd_bf16, lib.conv3d_fwd_f32):
+            fn.argtypes = [ptr] * 3 + [i32] * 6 + [ptr]
+        for fn in (lib.conv3d_dw_workspace_bf16, lib.conv3d_dw_workspace_f32):
+            fn.argtypes = [ptr] * 4 + [i32] * 7 + [ptr]
+        for fn in (lib.conv3d_dw_resident_bf16, lib.conv3d_dw_resident_f32):
+            fn.argtypes = [ptr] * 3 + [i32] * 6 + [ptr]
+        lib.conv3d_dw_workspace_tiles.argtypes = [i32, i32]
+        for fn in (lib.conv3d_fwd_bf16, lib.conv3d_fwd_f32,
+                   lib.conv3d_dw_workspace_bf16, lib.conv3d_dw_workspace_f32,
+                   lib.conv3d_dw_resident_bf16, lib.conv3d_dw_resident_f32,
+                   lib.conv3d_dw_workspace_tiles):
+            fn.restype = i32
+    return lib
+
+
+def _check(x: torch.Tensor, other: torch.Tensor, other_shape, other_name: str):
+    """What the kernels take: contiguous, 16-byte aligned CUDA tensors of one
+    dtype, float32 or bfloat16; for bfloat16, channel counts in multiples of
+    8 (16-byte rows for the tile copies)."""
+    if x.ndim != 5:
+        raise ValueError(f"x must be [B, D, H, W, Ci], got {tuple(x.shape)}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"the conv kernels take float32 or bfloat16, got {x.dtype}")
+    if x.shape[:4].numel() >= 2 ** 31:
+        raise ValueError(f"B·D·H·W must stay below 2^31, got {tuple(x.shape)}")
+    if x.dtype == torch.bfloat16 and (x.shape[-1] % 8 or other.shape[-1] % 8):
+        raise ValueError(
+            "the bfloat16 conv kernels take channel counts that are multiples "
+            f"of 8, got Ci={x.shape[-1]} and {other_name} {tuple(other.shape)}")
+    for name, t, shape in (("x", x, tuple(x.shape)),
+                           (other_name, other, tuple(other_shape))):
+        if (tuple(t.shape) != shape or t.dtype != x.dtype or t.device != x.device
+                or not t.is_contiguous() or t.data_ptr() % 16):
+            raise ValueError(f"{name} must be a contiguous, 16-byte aligned "
+                             f"{x.dtype} {shape} on {x.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+
+
+def conv3d_forward(x: torch.Tensor, wm: torch.Tensor) -> torch.Tensor:
+    """y [B, D, H, W, Co] float32 from x [B, D, H, W, Ci] and wm [27, Ci, Co]
+    of x's dtype: the forward kernel on a CUDA tensor, the plain version on a
+    CPU tensor."""
+    if x.device.type == "cpu":
+        return conv3d_same_reference(x, wm)
+    if x.device.type != "cuda":
+        raise ValueError(f"the conv kernels take CUDA tensors, got {x.device}")
+    b, d, h, w, ci = x.shape
+    co = wm.shape[-1]
+    _check(x, wm, (27, ci, co), "w")
+    y = torch.empty(b, d, h, w, co, dtype=torch.float32, device=x.device)
+    lib = _library()
+    fn = lib.conv3d_fwd_bf16 if x.dtype == torch.bfloat16 else lib.conv3d_fwd_f32
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), wm.data_ptr(), y.data_ptr(), b, d, h, w, ci, co,
+                 torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"conv3d forward kernel launch failed: CUDA error {err}")
+    conv3d_forward.launches += 1
+    return y
+
+
+def conv3d_dw(x: torch.Tensor, dy: torch.Tensor,
+              scheme: str = DW_SCHEME) -> torch.Tensor:
+    """dW [27, Ci, Co] float32 from x [B, D, H, W, Ci] and dy [B, D, H, W, Co]
+    of x's dtype, by the 'workspace' scheme (per-slab partials, then a sum in
+    slab order) or the 'resident' scheme (one owner per dW tile, written
+    once); the plain version on a CPU tensor. Both schemes are deterministic.
+    """
+    if scheme not in DW_SCHEMES:
+        raise ValueError(f"scheme must be one of {DW_SCHEMES}, got {scheme!r}")
+    if x.device.type == "cpu":
+        return conv3d_dw_reference(x, dy)
+    if x.device.type != "cuda":
+        raise ValueError(f"the conv kernels take CUDA tensors, got {x.device}")
+    b, d, h, w, ci = x.shape
+    co = dy.shape[-1]
+    _check(x, dy, (b, d, h, w, co), "dy")
+    dw = torch.empty(27, ci, co, dtype=torch.float32, device=x.device)
+    lib = _library()
+    kind = "bf16" if x.dtype == torch.bfloat16 else "f32"
+    dims = (b, d, h, w, ci, co)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if scheme == "workspace":
+            sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+            tiles = lib.conv3d_dw_workspace_tiles(ci, co)
+            chunks = -(-b * d * h * w // VOXELS_PER_STEP)
+            slabs = max(1, min(MAX_SLABS, chunks, -(-CTAS_PER_SM * sms // tiles)))
+            workspace = torch.empty(slabs, 27, ci, co, dtype=torch.float32,
+                                    device=x.device)
+            err = getattr(lib, f"conv3d_dw_workspace_{kind}")(
+                x.data_ptr(), dy.data_ptr(), workspace.data_ptr(),
+                dw.data_ptr(), *dims, slabs, stream)
+        else:
+            err = getattr(lib, f"conv3d_dw_resident_{kind}")(
+                x.data_ptr(), dy.data_ptr(), dw.data_ptr(), *dims, stream)
+    if err:
+        raise RuntimeError(f"conv3d dW kernel ({scheme}) launch failed: "
+                           f"CUDA error {err}")
+    _DW_ENTRY[scheme].launches += 1
+    return dw
+
+
+def conv3d_dw_workspace(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    return conv3d_dw(x, dy, "workspace")
+
+
+def conv3d_dw_resident(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    return conv3d_dw(x, dy, "resident")
+
+
+# launches of the CUDA kernels (the plain versions are not counted); the dW
+# kernels are counted by scheme, on the entry point of each
+_DW_ENTRY = {"workspace": conv3d_dw_workspace, "resident": conv3d_dw_resident}
+conv3d_forward.launches = 0
+conv3d_dw_workspace.launches = 0
+conv3d_dw_resident.launches = 0
+
+
+class _Conv3dSame(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        ci, co = w.shape[-2:]
+        return conv3d_forward(x, w.to(x.dtype).reshape(27, ci, co).contiguous())
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        ci, co = w.shape[-2:]
+        g = g.to(x.dtype).contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            # dx = conv(dy, w with the taps flipped and Ci/Co swapped)
+            w_flip = w.to(x.dtype).flip(0, 1, 2).transpose(-1, -2)
+            w_flip = w_flip.reshape(27, co, ci).contiguous()
+            dx = conv3d_forward(g, w_flip).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            # one sample at a time, each dW rounded to w's dtype and added in
+            # it: the JAX wrapper stacks per-sample calls of the custom VJP
+            for b in range(x.shape[0]):
+                dw_b = conv3d_dw(x[b:b + 1], g[b:b + 1]).to(w.dtype)
+                dw = dw_b if dw is None else dw + dw_b
+            dw = dw.reshape(3, 3, 3, ci, co)
+        return dx, dw
+
+
+def conv3d_same_batched(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """3³ stride-1 zero-SAME conv (the JAX `conv3d_same_batched`): x
+    [B, D, H, W, Ci], w [3, 3, 3, Ci, Co] → float32 [B, D, H, W, Co].
+    Differentiable w.r.t. x and w. The batch is part of the kernels' voxel
+    axis: the forward and dx are one launch each whatever B; dW is one launch
+    per sample (see the backward)."""
+    if w.shape[:3] != (3, 3, 3) or w.shape[3] != x.shape[-1]:
+        raise ValueError(f"w must be [3, 3, 3, {x.shape[-1]}, Co], got "
+                         f"{tuple(w.shape)}")
+    return _Conv3dSame.apply(x.contiguous(), w)
+
+
+def conv3d_same(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Single sample [D, H, W, Ci] → float32 [D, H, W, Co] (the JAX
+    `conv3d_same`)."""
+    return conv3d_same_batched(x[None], w)[0]

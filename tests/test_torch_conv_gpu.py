@@ -1,0 +1,117 @@
+"""The CUDA 3³ conv kernels (forward/dx, dW by the workspace and the resident
+scheme) against their plain PyTorch versions, on the card.
+
+Marked `gpu`: each case skips without a CUDA device. This file imports
+nothing of JAX, so it also runs where JAX is not installed:
+
+    python -m pytest --noconftest tests/test_torch_conv_gpu.py -m gpu
+
+Tolerances, relative to max(1, max|plain|). float32 (plain FMA against a
+float32 matmul, other summation order): 1e-5. bfloat16: both sides multiply
+the same bf16 values exactly and differ only in the order and the rounding of
+the float32 accumulation (the tensor cores do not round to nearest), over
+27·Ci terms in the forward (1e-3) and over every voxel in dW (2^-8, one bf16
+step: what dW is rounded to before it reaches the parameter).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from manigaussian_tpu_torch.ops.conv3d import (conv3d_dw, conv3d_dw_reference,
+                                               conv3d_dw_resident,
+                                               conv3d_dw_workspace,
+                                               conv3d_forward,
+                                               conv3d_same_batched,
+                                               conv3d_same_reference)
+
+TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-3, 2.0 ** -8)}
+
+# (B, D, H, W, Ci, Co): ragged volumes that divide by no tile, one voxel row
+# shorter than a tile, channel counts under and over a tile
+SHAPES = [(1, 5, 6, 7, 8, 16), (2, 9, 10, 11, 24, 40), (1, 12, 13, 14, 72, 136),
+          (1, 3, 2, 1, 16, 8)]
+
+
+def _inputs(shape, dtype, seed=0):
+    b, d, h, w, ci, co = shape
+    rng = np.random.default_rng(seed)
+    mk = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+    x = mk(b, d, h, w, ci).cuda().to(dtype)
+    wm = (0.1 * mk(27, ci, co)).cuda().to(dtype)
+    dy = mk(b, d, h, w, co).cuda().to(dtype)
+    return x, wm, dy
+
+
+def _rel(a, b):
+    return ((a.float() - b.float()).abs().max() / max(1.0, b.abs().max().item())).item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_cuda_conv_kernels_match_plain_versions(shape, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; runs on the card")
+    x, wm, dy = _inputs(shape, dtype)
+    ftol, wtol = TOL[dtype]
+    n0 = conv3d_forward.launches
+    y = conv3d_forward(x, wm)
+    torch.cuda.synchronize()
+    assert conv3d_forward.launches == n0 + 1
+    assert y.dtype == torch.float32
+    assert _rel(y, conv3d_same_reference(x, wm)) <= ftol
+    # dx: the same kernel on dy with the taps flipped and Ci/Co swapped
+    w_flip = wm.flip(0).transpose(1, 2).contiguous()
+    assert _rel(conv3d_forward(dy, w_flip),
+                conv3d_same_reference(dy, w_flip)) <= ftol
+    ref = conv3d_dw_reference(x, dy)
+    for entry in (conv3d_dw_workspace, conv3d_dw_resident):
+        before = entry.launches
+        got = entry(x, dy)
+        torch.cuda.synchronize()
+        assert entry.launches == before + 1
+        assert _rel(got, ref) <= wtol, entry.__name__
+        # deterministic: no atomics, the same bits on a second run
+        assert torch.equal(entry(x, dy), got), entry.__name__
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_conv_autograd_follows_the_cpu_function(dtype):
+    """`conv3d_same_batched` on the card against the same Function on the CPU
+    (the plain versions): y float32, dx in x's dtype, dW in w's dtype."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; runs on the card")
+    shape = (2, 6, 7, 9, 16, 24)
+    x, wm, dy = _inputs(shape, dtype, seed=1)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        xd = x.to(dev).requires_grad_()
+        wd = wm.reshape(3, 3, 3, 16, 24).to(dev).requires_grad_()
+        y = conv3d_same_batched(xd, wd)
+        gx, gw = torch.autograd.grad(y, (xd, wd), dy.float().to(dev))
+        assert y.dtype == torch.float32 and gx.dtype == dtype and gw.dtype == dtype
+        outs[dev] = [t.detach().float().cpu() for t in (y, gx, gw)]
+    ftol, wtol = TOL[dtype]
+    step = 2.0 ** -8 if dtype == torch.bfloat16 else 0.0   # a rounding flip
+    for got, ref, tol in zip(outs["cuda"], outs["cpu"],
+                             (ftol, ftol + step, wtol + step)):
+        assert _rel(got, ref) <= tol
+
+
+@pytest.mark.gpu
+def test_cuda_conv_wrapper_refuses_what_the_kernels_do_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; runs on the card")
+    x, wm, dy = _inputs((1, 4, 4, 4, 12, 16), torch.bfloat16)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        conv3d_forward(x, wm)                       # Ci = 12 in bf16
+    with pytest.raises(ValueError, match="multiples of 8"):
+        conv3d_dw(x, dy)
+    with pytest.raises(ValueError):
+        conv3d_forward(x.double(), wm.double())
+    with pytest.raises(ValueError):
+        conv3d_forward(x.float(), wm)               # mixed dtypes
+    with pytest.raises(ValueError, match="scheme"):
+        conv3d_dw(x, dy, scheme="atomic")

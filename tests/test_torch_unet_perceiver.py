@@ -53,7 +53,8 @@ def _perceiver_kwargs(pad_mode, conv_impl):
 
 
 @pytest.mark.parametrize("pad_mode,conv_impl", [("zero", "z2d"),
-                                                ("edge", "xla")])
+                                                ("edge", "xla"),
+                                                ("zero", "pallas")])
 def test_perceiver_matches_jax(pad_mode, conv_impl):
     rng = np.random.default_rng(2)
     vox = (rng.standard_normal((1, 20, 20, 20, 10)) * 0.5).astype(np.float32)
