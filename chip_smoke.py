@@ -17,8 +17,11 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                    JAX package's pinned frames (tests/goldens/*.npz, read with
                    numpy) rendered through the kernel route; `conv`: the 3³
                    conv forward, dx and dW (workspace and resident scheme, each
-                   bitwise repeatable) in fp32 and bf16 at ragged shapes and at
-                   the policy's two 100³ convs. Then time each kernel, its
+                   bitwise repeatable, and against each other) in fp32 and
+                   bf16 at ragged shapes and at the policy's two 100³ convs,
+                   with ptxas's registers and spill of the two wgmma kernels.
+                   Then time each kernel (the flash forward without and with
+                   dropout, SDPA beside each at the same dropout rate), its
                    plain version and the PyTorch call that computes the same
                    function (a yardstick only; the port never calls it);
   3. small       — references on small inputs, the card against the CPU (the
@@ -88,6 +91,13 @@ PEAK_BYTES = 3.35e12
 # the 132 SMs (4 SFUs in each of an SM's 4 partitions, Hopper architecture
 # white paper) at the 1.98 GHz boost clock
 PEAK_SFU = 132 * 16 * 1.98e9
+# 32-bit integer operations a second: 64 INT32 lanes a clock on each SM (16
+# in each of its 4 partitions, same white paper) at the same clock
+PEAK_INT32 = 132 * 64 * 1.98e9
+# the attention dropout mask's integer work per score (flash_attention.cu,
+# Dropout::factor): col·c, xor, three shift-xors (2 each), two multiplies,
+# the compare and the select; the row's part of the hash is shared by a row
+DROPOUT_INT_OPS = 12
 # the blend's work per (splat, pixel) pair: the forward's exp and log1p,
 # ≈ 20 fp32 operations (power, alpha, gates, weight, 6 accumulators); the
 # backward replays the forward twice and adds the suffix-sum gradient and
@@ -204,7 +214,9 @@ def phase_flash() -> dict:
             errs = {"fwd": fwd_err, "bwd": max(bwd.values()) * max(
                 1.0, max(b.float().abs().max().item() for b in rgrads))}
 
-    # times at the training step's shape (bf16, dropout 0.1 as in training)
+    # times at the policy's shape, bf16: the forward without dropout (act's
+    # use) and with dropout 0.1 (training's), each beside SDPA at the same
+    # dropout rate; the backward with dropout 0.1. SDPA is a yardstick only.
     n, d, bh = 2048, 64, 8
     q, k, v, g = (torch.randn(1, 8, n, d, generator=gen, device="cuda")
                   .to(torch.bfloat16) for _ in range(4))
@@ -212,37 +224,68 @@ def phase_flash() -> dict:
     out, lse = flash_attention_forward(q, k, v, 0.1, 1234, 256, with_lse=True)
     qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
     ref = flash_self_attention_reference(qg, kg, vg, 0.1, 1234, 256)
-    sdpa = F.scaled_dot_product_attention(qg, kg, vg)
+    sdpa = F.scaled_dot_product_attention(qg, kg, vg, dropout_p=0.1)
     elt = q.element_size()
-    records = []
-    for name, flops, nbytes, fns in (
-            ("flash_self_attention_fwd", 4.0 * bh * n * n * d,
-             4.0 * bh * n * d * elt,
-             {"ms": lambda: flash_self_attention(q, k, v, 0.1, sd, 256),
-              "plain_ms": lambda: flash_self_attention_reference(
-                  q, k, v, 0.1, 1234, 256),
-              "library_ms": lambda: F.scaled_dot_product_attention(q, k, v)}),
-            ("flash_self_attention_bwd", 10.0 * bh * n * n * d,
-             8.0 * bh * n * d * elt + 4.0 * bh * n,
-             {"ms": lambda: flash_self_attention_backward(
-                 q, k, v, out, g, lse, 0.1, 1234, 256),
-              "plain_ms": lambda: torch.autograd.grad(
-                  ref, (qg, kg, vg), g, retain_graph=True),
-              "library_ms": lambda: torch.autograd.grad(
-                  sdpa, (qg, kg, vg), g, retain_graph=True)})):
-        times = {key: cuda_ms(fn) for key, fn in fns.items()}
-        bound_ms, bound_by = bound(flops, nbytes, PEAK_FLOPS["bfloat16"])
-        kind = "fwd" if name.endswith("fwd") else "bwd"
-        records.append({
-            "name": name, "route": "cuda",
-            "source": "manigaussian_tpu_torch/csrc/flash_attention.cu",
-            "replaces": ("manigaussian_tpu/ops/flash_attention.py:138" if kind == "fwd"
-                         else "manigaussian_tpu/ops/flash_attention.py:166"),
-            "launches": None, "max_abs_err": errs[kind], **times,
-            "bound_ms": bound_ms, "bound_by": bound_by})
-        log("kernel_time", kernel=name, shape=[1, 8, n, d], dtype="bfloat16",
-            dropout=0.1, flops=flops, bytes=nbytes, **times, bound_ms=bound_ms,
-            bound_by=bound_by, tflops=flops / times["ms"] / 1e9)
+    fwd_flops, fwd_bytes = 4.0 * bh * n * n * d, 4.0 * bh * n * d * elt
+    int_ms = DROPOUT_INT_OPS * bh * n * n / PEAK_INT32 * 1e3
+
+    def fwd_times(rate):
+        return {"ms": cuda_ms(lambda: flash_self_attention(q, k, v, rate, sd, 256)),
+                "plain_ms": cuda_ms(lambda: flash_self_attention_reference(
+                    q, k, v, rate, 1234, 256)),
+                "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, dropout_p=rate))}
+
+    def fwd_bound(rate):
+        ms, by = bound(fwd_flops, fwd_bytes, PEAK_FLOPS["bfloat16"])
+        return (max(ms, int_ms), "operations") if rate > 0 else (ms, by)
+
+    variants = {}
+    for rate in (0.0, 0.1):
+        times = fwd_times(rate)
+        bound_ms, bound_by = fwd_bound(rate)
+        variants[rate] = {**times, "bound_ms": bound_ms, "bound_by": bound_by}
+        log("kernel_time", kernel="flash_self_attention_fwd", shape=[1, 8, n, d],
+            dtype="bfloat16", dropout=rate, library_dropout_p=rate,
+            flops=fwd_flops, bytes=fwd_bytes,
+            mask_int_ops=DROPOUT_INT_OPS * bh * n * n if rate > 0 else 0,
+            **times, bound_ms=bound_ms, bound_by=bound_by,
+            bound_parts_ms={"tensor": fwd_flops / PEAK_FLOPS["bfloat16"] * 1e3,
+                            "bytes": fwd_bytes / PEAK_BYTES * 1e3,
+                            "int32": int_ms if rate > 0 else 0.0},
+            factor_vs_library=times["ms"] / times["library_ms"],
+            tflops=fwd_flops / times["ms"] / 1e9)
+    source = "manigaussian_tpu_torch/csrc/flash_attention.cu"
+    # the record carries training's variant (dropout 0.1, as on the main
+    # path) and act's variant beside it
+    records = [{"name": "flash_self_attention_fwd", "route": "cuda",
+                "source": source,
+                "replaces": "manigaussian_tpu/ops/flash_attention.py:138",
+                "launches": None, "max_abs_err": errs["fwd"], **variants[0.1],
+                "dropout": 0.1, "no_dropout": variants[0.0]}]
+
+    bwd_flops = 10.0 * bh * n * n * d
+    bwd_bytes = 8.0 * bh * n * d * elt + 4.0 * bh * n
+    times = {"ms": cuda_ms(lambda: flash_self_attention_backward(
+                 q, k, v, out, g, lse, 0.1, 1234, 256)),
+             "plain_ms": cuda_ms(lambda: torch.autograd.grad(
+                 ref, (qg, kg, vg), g, retain_graph=True)),
+             "library_ms": cuda_ms(lambda: torch.autograd.grad(
+                 sdpa, (qg, kg, vg), g, retain_graph=True))}
+    bound_ms, bound_by = bound(bwd_flops, bwd_bytes, PEAK_FLOPS["bfloat16"])
+    # the mask's integer work counted once (the kernels rebuild it in both
+    # the dK/dV and the dQ pass)
+    bound_ms = max(bound_ms, int_ms)
+    records.append({"name": "flash_self_attention_bwd", "route": "cuda",
+                    "source": source,
+                    "replaces": "manigaussian_tpu/ops/flash_attention.py:166",
+                    "launches": None, "max_abs_err": errs["bwd"], **times,
+                    "bound_ms": bound_ms, "bound_by": bound_by, "dropout": 0.1})
+    log("kernel_time", kernel="flash_self_attention_bwd", shape=[1, 8, n, d],
+        dtype="bfloat16", dropout=0.1, library_dropout_p=0.1, flops=bwd_flops,
+        bytes=bwd_bytes, **times, bound_ms=bound_ms, bound_by=bound_by,
+        factor_vs_library=times["ms"] / times["library_ms"],
+        tflops=bwd_flops / times["ms"] / 1e9)
     return {r["name"]: r for r in records}
 
 
@@ -431,13 +474,34 @@ CONV_TOL = {"float32": {"fwd": 1e-5, "dw": 1e-5},
             "bfloat16": {"fwd": 1e-3, "dw": 2.0 ** -8}}
 
 
+def ptxas_report(source: str, kernel: str) -> dict:
+    """Registers and spill bytes of the entry function whose mangled name
+    contains `kernel`, from the compiler's log beside the built library."""
+    import re
+    from manigaussian_tpu_torch.ops import _cuda
+    text = _cuda.library_path(source).with_suffix(".log").read_text()
+    m = re.search(r"Compiling entry function '[^']*" + re.escape(kernel)
+                  + r"[^']*'.*?(\d+) bytes spill stores, (\d+) bytes spill loads"
+                  r".*?Used (\d+) registers", text, re.S)
+    if m is None:
+        raise AssertionError(f"no ptxas report for {kernel} in {source}.log")
+    return {"registers": int(m.group(3)),
+            "spill_bytes": int(m.group(1)) + int(m.group(2)),
+            "wgmma_serialized": bool(re.search(
+                r"C7512[^\n]*" + re.escape(kernel), text))}
+
+
 def phase_conv() -> dict:
     """The 3³ conv kernels: forward, dx (the forward kernel on dy with the
     taps flipped and Ci/Co swapped) and dW by the workspace and the resident
     scheme, against the plain versions on the card, at small ragged shapes in
-    fp32 and bf16 and at the policy's two 100³ convs in bf16; the two dW
-    schemes bitwise equal across two runs; then the time of each kernel, of
-    its plain version and of the library call (F.conv3d, conv3d_weight: a
+    fp32 and bf16 (among them a batch of 2 whose voxel tiles straddle the
+    samples at 128 → 128 channels, and 128 ↔ 256 channels for a forward and a
+    dx over two 128-wide tiles) and at the policy's two 100³ convs in bf16;
+    the two dW schemes, two independent sums, against each other, and each
+    bitwise equal across two runs; ptxas's registers and spill of the two
+    wgmma kernels (no spill allowed); then the time of each kernel, of its
+    plain version and of the library call (F.conv3d, conv3d_weight: a
     yardstick only) beside its bound."""
     import torch
     import torch.nn.functional as F
@@ -463,17 +527,22 @@ def phase_conv() -> dict:
                 "dx": rel(conv3d_forward(dy, w_flip),
                           conv3d_same_reference(dy, w_flip))}
         ref = conv3d_dw_reference(x, dy)
-        same = {}
+        same, got = {}, {}
         for name, fn in (("dw_workspace", conv3d_dw_workspace),
                          ("dw_resident", conv3d_dw_resident)):
-            got = fn(x, dy)
-            errs[name] = rel(got, ref)
-            same[name] = torch.equal(fn(x, dy), got)
+            got[name] = fn(x, dy)
+            errs[name] = rel(got[name], ref)
+            same[name] = torch.equal(fn(x, dy), got[name])
+        # kernel against kernel: each is within tol of the plain version
+        errs["dw_workspace_vs_resident"] = rel(got["dw_workspace"],
+                                               got["dw_resident"])
         torch.cuda.synchronize()
         tol = CONV_TOL[dtype]
         ok = (errs["fwd"] <= tol["fwd"] and errs["dx"] <= tol["fwd"]
               and errs["dw_workspace"] <= tol["dw"]
-              and errs["dw_resident"] <= tol["dw"] and all(same.values()))
+              and errs["dw_resident"] <= tol["dw"]
+              and errs["dw_workspace_vs_resident"] <= 2 * tol["dw"]
+              and all(same.values()))
         log("kernel_check", kernel="conv3d", conv=label, dtype=dtype,
             shape=[b, d, h, w, ci], co=co, compared_with="the plain version",
             err_over_scale=errs, tol=tol, bitwise_repeatable=same, ok=ok)
@@ -483,9 +552,16 @@ def phase_conv() -> dict:
         return x, wm, dy, errs, y_scale, max(1.0, ref.abs().max().item())
 
     for shape in ((1, 5, 6, 7, 8, 16), (2, 9, 10, 11, 24, 40),
-                  (1, 12, 13, 14, 72, 136)):
+                  (1, 12, 13, 14, 72, 136), (2, 12, 13, 14, 128, 128),
+                  (1, 6, 7, 9, 128, 256), (1, 6, 7, 9, 256, 128)):
         for dtype in ("float32", "bfloat16"):
             check("ragged", dtype, *shape)
+
+    build = {"conv3d_fwd": ptxas_report("conv3d", "conv3d_fwd_wgmma_kernel"),
+             "conv3d_dw": ptxas_report("conv3d", "conv3d_dw_wgmma_kernel")}
+    log("kernel_build", source="manigaussian_tpu_torch/csrc/conv3d.cu", **build)
+    if any(b["spill_bytes"] or b["wgmma_serialized"] for b in build.values()):
+        raise AssertionError(f"the wgmma conv kernels spill or serialize: {build}")
 
     records = {}
     for label, ci, co in (("final 256→128", 256, 128),
@@ -524,7 +600,10 @@ def phase_conv() -> dict:
             log("kernel_time", kernel=name, conv=label,
                 shape=[1, 100, 100, 100, ci], co=co, dtype="bfloat16",
                 flops=flops, bytes=nbytes[kind], **times, bound_ms=bound_ms,
-                bound_by=bound_by, tflops=flops / times["ms"] / 1e9)
+                bound_by=bound_by, tflops=flops / times["ms"] / 1e9,
+                factor_vs_bound=times["ms"] / bound_ms,
+                factor_vs_library=times["ms"] / times["library_ms"],
+                **build.get(name, {}))
             if ci == 256:   # the record's shape: the larger of the two convs
                 records[name] = {
                     "name": name, "route": "cuda",

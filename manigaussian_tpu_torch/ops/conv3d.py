@@ -28,18 +28,44 @@ import torch.nn.functional as F
 from manigaussian_tpu_torch.ops import _cuda
 
 # The scheme `conv3d_same`'s backward uses: the faster one at the policy's
-# two 100³ convolutions in bf16 (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py
-# phase `conv`): workspace 8.39 / 4.13 ms against resident 18.94 / 15.96 ms
-# at 256→128 / 128→128.
+# two 100³ convolutions in bf16 (chip_smoke.py phase `conv`; the times stand
+# in PERF.md).
 DW_SCHEME = "workspace"
 DW_SCHEMES = ("workspace", "resident")
-# The workspace scheme cuts the voxels into slabs until the grid has this many
-# CTAs for each SM (one is resident at a time, so the last wave of a short
-# grid leaves SMs idle: 4 a SM took 9.0 ms where 16 take 7.6 ms at 256→128),
-# at most MAX_SLABS (a workspace of 64 × 27·Ci·Co floats, 226 MB at 256→128).
+# The workspace scheme's grid (csrc/conv3d.cu): a CTA owns one dW tile (one
+# row of the stencil × DW_TILE_CI input × DW_TILE_CO output channels) over one
+# slab of the voxels, walked in steps of VOXELS_PER_STEP; one CTA is resident
+# on an SM at a time.
+DW_TILE_CI = 64
+DW_TILE_CO = 128
+VOXELS_PER_STEP = 64
 MAX_SLABS = 64
-CTAS_PER_SM = 16
-VOXELS_PER_STEP = 64   # kDwVox in csrc/conv3d.cu: the kernels' step over voxels
+# what a CTA spends outside its walk (filling the pipeline, writing its
+# partial tile), in steps of the walk
+SLAB_OVERHEAD_STEPS = 8
+
+
+def dw_tiles(ci: int, co: int) -> int:
+    """The number of dW tiles of the workspace scheme."""
+    return 9 * -(-ci // DW_TILE_CI) * -(-co // DW_TILE_CO)
+
+
+def dw_slabs(voxels: int, ci: int, co: int, sms: int) -> int:
+    """Into how many slabs the workspace scheme cuts the voxels, from the
+    shapes and the number of SMs alone. The grid of tiles × slabs CTAs runs
+    in ⌈tiles·slabs / sms⌉ waves, each as long as one slab's walk plus the
+    CTA's overhead; the slab count with the shortest run wins, the smaller
+    one on a tie (a smaller workspace, a shorter sum in the second pass).
+    Never more slabs than MAX_SLABS or than steps."""
+    tiles = dw_tiles(ci, co)
+    steps = max(1, -(-voxels // VOXELS_PER_STEP))
+    best, best_cost = 1, None
+    for slabs in range(1, min(MAX_SLABS, steps) + 1):
+        waves = -(-tiles * slabs // sms)
+        cost = waves * (-(-steps // slabs) + SLAB_OVERHEAD_STEPS)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = slabs, cost
+    return best
 
 
 def _padded(x: torch.Tensor) -> torch.Tensor:
@@ -90,11 +116,9 @@ def _library() -> ctypes.CDLL:
             fn.argtypes = [ptr] * 4 + [i32] * 7 + [ptr]
         for fn in (lib.conv3d_dw_resident_bf16, lib.conv3d_dw_resident_f32):
             fn.argtypes = [ptr] * 3 + [i32] * 6 + [ptr]
-        lib.conv3d_dw_workspace_tiles.argtypes = [i32, i32]
         for fn in (lib.conv3d_fwd_bf16, lib.conv3d_fwd_f32,
                    lib.conv3d_dw_workspace_bf16, lib.conv3d_dw_workspace_f32,
-                   lib.conv3d_dw_resident_bf16, lib.conv3d_dw_resident_f32,
-                   lib.conv3d_dw_workspace_tiles):
+                   lib.conv3d_dw_resident_bf16, lib.conv3d_dw_resident_f32):
             fn.restype = i32
     return lib
 
@@ -169,9 +193,7 @@ def conv3d_dw(x: torch.Tensor, dy: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         if scheme == "workspace":
             sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-            tiles = lib.conv3d_dw_workspace_tiles(ci, co)
-            chunks = -(-b * d * h * w // VOXELS_PER_STEP)
-            slabs = max(1, min(MAX_SLABS, chunks, -(-CTAS_PER_SM * sms // tiles)))
+            slabs = dw_slabs(b * d * h * w, ci, co, sms)
             workspace = torch.empty(slabs, 27, ci, co, dtype=torch.float32,
                                     device=x.device)
             err = getattr(lib, f"conv3d_dw_workspace_{kind}")(

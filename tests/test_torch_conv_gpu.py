@@ -28,9 +28,12 @@ from manigaussian_tpu_torch.ops.conv3d import (conv3d_dw, conv3d_dw_reference,
 TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-3, 2.0 ** -8)}
 
 # (B, D, H, W, Ci, Co): ragged volumes that divide by no tile, one voxel row
-# shorter than a tile, channel counts under and over a tile
+# shorter than a tile, channel counts under and over a tile; a batch of 2
+# whose voxel tiles straddle the samples at full 128-channel tiles; 128 ↔ 256
+# channels (a forward and a dx over two 128-wide tiles of output channels)
 SHAPES = [(1, 5, 6, 7, 8, 16), (2, 9, 10, 11, 24, 40), (1, 12, 13, 14, 72, 136),
-          (1, 3, 2, 1, 16, 8)]
+          (1, 3, 2, 1, 16, 8), (2, 12, 13, 14, 128, 128), (1, 6, 7, 9, 128, 256),
+          (1, 6, 7, 9, 256, 128)]
 
 
 def _inputs(shape, dtype, seed=0):
@@ -74,6 +77,9 @@ def test_cuda_conv_kernels_match_plain_versions(shape, dtype):
         assert _rel(got, ref) <= wtol, entry.__name__
         # deterministic: no atomics, the same bits on a second run
         assert torch.equal(entry(x, dy), got), entry.__name__
+    # kernel against kernel: two independent sums, each within wtol of the
+    # plain version
+    assert _rel(conv3d_dw_workspace(x, dy), conv3d_dw_resident(x, dy)) <= 2 * wtol
 
 
 @pytest.mark.gpu
