@@ -9,9 +9,13 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                    one process per source, and print ptxas's register report;
   2. kernels     — hold each kernel against its plain PyTorch version on the
                    card at the main paths' shapes and a few ragged ones: the
-                   flash forward (without and with dropout, the same hashed
-                   mask) and backward (dq, dk, dv against autograd of the
-                   plain version); the tile blend forward and backward on the
+                   flash forward (without and with the LSE and dropout, the
+                   same hashed mask; the keep bits it writes in training
+                   equal to the plain ones bit for bit) and backward (dq, dk,
+                   dv against autograd of the plain version, bitwise
+                   repeatable; in bf16 with dropout from those bits), with
+                   ptxas's registers and spill of its three wgmma kernels;
+                   the tile blend forward and backward on the
                    tiles of a real frame (16,384 random Gaussians in a 128²
                    view, binned by the port's rasterizer); `golden`: the
                    JAX package's pinned frames (tests/goldens/*.npz, read with
@@ -23,7 +27,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                    Then time each kernel (the flash forward without and with
                    dropout, SDPA beside each at the same dropout rate), its
                    plain version and the PyTorch call that computes the same
-                   function (a yardstick only; the port never calls it);
+                   function (a yardstick only; the port never calls it); the
+                   flash kernels and SDPA on the device reading (the summed
+                   durations of their device work under torch.profiler), the
+                   host loop's events beside it;
   3. small       — references on small inputs, the card against the CPU (the
                    plain versions, which tests/test_torch_*.py hold to the JAX
                    package): voxelize on cell boundaries, the micro config's
@@ -64,6 +71,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 Then one JSON line of kernel records, the card's name and power limit, and
 last, the device line.
 
+`python3 chip_smoke.py --flash-times` builds the kernels and prints only the
+flash kernels' times (`flash_times`, through the public entry point): run
+from the root of two checkouts in turn, it times both with one yardstick.
+
 Nothing of JAX is imported. Scratch files go under build/chip_smoke/ in the
 checkout. With no CUDA device, or without the package beside it, the script
 exits non-zero before printing any result.
@@ -94,10 +105,12 @@ PEAK_SFU = 132 * 16 * 1.98e9
 # 32-bit integer operations a second: 64 INT32 lanes a clock on each SM (16
 # in each of its 4 partitions, same white paper) at the same clock
 PEAK_INT32 = 132 * 64 * 1.98e9
-# the attention dropout mask's integer work per score (flash_attention.cu,
-# Dropout::factor): col·c, xor, three shift-xors (2 each), two multiplies,
-# the compare and the select; the row's part of the hash is shared by a row
-DROPOUT_INT_OPS = 12
+# the attention dropout mask's integer work per score in its factored form
+# (flash_attention.cu, `Dropout`): the xor of the row's and the column's
+# mixed parts (each computed once per row or key, not counted), a multiply,
+# a shift and a xor, a multiply, the xor with the folded threshold and the
+# compare: five integer-pipe operations and two multiplies
+DROPOUT_INT_OPS = 7
 # the blend's work per (splat, pixel) pair: the forward's exp and log1p,
 # ≈ 20 fp32 operations (power, alpha, gates, weight, 6 accumulators); the
 # backward replays the forward twice and adds the suffix-sum gradient and
@@ -139,6 +152,9 @@ def bound(flops: float, nbytes: float, peak_flops: float):
 
 
 def cuda_ms(fn, iters: int = 30, warmup: int = 5) -> float:
+    """Host-loop reading: CUDA events around `iters` back-to-back calls. For
+    a kernel of tens of microseconds it reads the host's enqueue rate as
+    much as the kernel (`host_loop_ms` beside `device_ms`)."""
     import torch
     for _ in range(warmup):
         fn()
@@ -150,6 +166,39 @@ def cuda_ms(fn, iters: int = 30, warmup: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 3, by_kernel=None) -> float:
+    """Device reading: the summed durations of the device work (kernels and
+    memsets) that `iters` calls of `fn` launch, from torch.profiler's CUDA
+    trace, per call. The host's enqueue rate and the gaps between launches do
+    not show. `by_kernel`, a dict, receives the time per call of each kernel
+    name. A profiler session started right after another one may come back
+    without its device records; such a session is run again, up to twice."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    for _ in range(3):
+        torch.cuda.synchronize()
+        time.sleep(0.1)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        total_us = sum(e.self_device_time_total for e in events)
+        if total_us > 0:
+            break
+    else:
+        raise AssertionError("torch.profiler saw no device time")
+    if by_kernel is not None:
+        by_kernel.update({e.key[:80]: e.self_device_time_total / 1e3 / iters
+                          for e in events})
+    return total_us / 1e3 / iters
 
 
 def phase_build() -> None:
@@ -166,126 +215,212 @@ def phase_build() -> None:
         ptxas=report)
 
 
-def phase_flash() -> dict:
-    """The flash forward (with and without dropout) and backward against the
-    plain version; then their times at the policy's shape."""
+# flash_attention.cu's bf16 wgmma kernels, held to no spill and no
+# serialized wgmma (ptxas's C7512 or C7520) in phase `flash`
+FLASH_WGMMA_KERNELS = ("flash_fwd_bf16_kernel", "flash_bwd_dkdv_bf16_kernel",
+                       "flash_bwd_dq_bf16_kernel")
+
+
+def flash_checks() -> dict:
+    """The flash kernels against the plain version at every shape of the
+    list, bf16 and fp32: the forward without the LSE (act's call) and with it
+    (training's, through autograd), the backward against autograd of the
+    plain version; in bf16 with dropout the keep bits the forward writes
+    equal `dropout_keep_bits` bit for bit, and the backward reads them; dq,
+    dk, dv bitwise equal over two backward calls. Returns the errors at the
+    policy's training shape."""
     import torch
-    import torch.nn.functional as F
     from manigaussian_tpu_torch.ops.flash_attention import (
-        flash_attention_forward, flash_self_attention,
+        dropout_keep_bits, flash_attention_forward, flash_self_attention,
         flash_self_attention_backward, flash_self_attention_reference)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    # (dtype, N, head dim, dropout rate, forward tolerance); the backward's
-    # tolerance: bf16 2e-2·max(1, max|ref|), fp32 1e-4·max(1, max|ref|)
-    # (sums over N keys in another order)
-    checks = [("bfloat16", 2048, 64, 0.0, 2e-2), ("bfloat16", 2048, 64, 0.1, 2e-2),
-              ("float32", 2048, 64, 0.0, 1e-5), ("float32", 512, 64, 0.1, 1e-5),
-              ("bfloat16", 256, 64, 0.1, 2e-2), ("bfloat16", 512, 32, 0.0, 2e-2),
-              ("bfloat16", 100, 16, 0.0, 2e-2), ("float32", 32, 8, 0.1, 1e-5)]
+    # (dtype, N, head dim, forward tolerance): bf16 at the policy's shape and
+    # ragged ones, each at dropout 0 and 0.1; the backward's tolerance: bf16
+    # 2e-2·max(1, max|ref|), fp32 1e-4·max(1, max|ref|) (sums over N keys in
+    # another order)
+    shapes = [("bfloat16", 2048, 64, 2e-2), ("bfloat16", 256, 64, 2e-2),
+              ("bfloat16", 512, 32, 2e-2), ("bfloat16", 100, 16, 2e-2),
+              ("bfloat16", 100, 64, 2e-2), ("float32", 2048, 64, 1e-5),
+              ("float32", 512, 64, 1e-5), ("float32", 32, 8, 1e-5)]
     errs = {}
-    for dtype, n, d, rate, tol in checks:
-        dt = getattr(torch, dtype)
-        q, k, v = (torch.randn(1, 8, n, d, generator=gen, device="cuda").to(dt)
-                   .requires_grad_() for _ in range(3))
-        bq = 256 if n % 256 == 0 else n
-        seed = 1234
-        out = flash_self_attention(q, k, v, rate, torch.tensor([seed]), bq)
-        g = torch.randn(out.shape, generator=gen, device="cuda")
-        grads = torch.autograd.grad((out.float() * g).sum(), (q, k, v))
-        ref = flash_self_attention_reference(q, k, v, rate, seed, bq)
-        rgrads = torch.autograd.grad((ref.float() * g).sum(), (q, k, v))
-        torch.cuda.synchronize()
-        fwd_err = (out.float() - ref.float()).abs().max().item()
-        btol = 2e-2 if dtype == "bfloat16" else 1e-4
-        bwd = {}
-        for name, a, b in zip(("dq", "dk", "dv"), grads, rgrads):
-            scale = max(1.0, b.float().abs().max().item())
-            bwd[name] = (a.float() - b.float()).abs().max().item() / scale
-        ok = (bool(torch.isfinite(out).all()) and fwd_err <= tol
-              and all(e <= btol for e in bwd.values()))
-        log("kernel_check", kernel="flash_self_attention", dtype=dtype,
-            shape=[1, 8, n, d], dropout=rate, max_abs_err=fwd_err, tol=tol,
-            bwd_err_over_scale=bwd, bwd_tol=btol, ok=ok)
-        if not ok:
-            raise AssertionError(f"flash kernels disagree: {dtype} n={n} d={d} "
-                                 f"rate={rate} fwd={fwd_err} bwd={bwd}")
-        if (dtype, n, d, rate) == ("bfloat16", 2048, 64, 0.1):
-            errs = {"fwd": fwd_err, "bwd": max(bwd.values()) * max(
-                1.0, max(b.float().abs().max().item() for b in rgrads))}
+    for dtype, n, d, tol in shapes:
+        for rate in (0.0, 0.1):
+            dt = getattr(torch, dtype)
+            q, k, v = (torch.randn(1, 8, n, d, generator=gen, device="cuda").to(dt)
+                       .requires_grad_() for _ in range(3))
+            bq = 256 if n % 256 == 0 else n
+            seed = 1234
+            with torch.no_grad():   # act's call: no LSE, no bits
+                out_nolse = flash_self_attention(q, k, v, rate, torch.tensor([seed]), bq)
+            out = flash_self_attention(q, k, v, rate, torch.tensor([seed]), bq)
+            g = torch.randn(out.shape, generator=gen, device="cuda")
+            grads = torch.autograd.grad((out.float() * g).sum(), (q, k, v))
+            ref = flash_self_attention_reference(q, k, v, rate, seed, bq)
+            rgrads = torch.autograd.grad((ref.float() * g).sum(), (q, k, v))
+            fwd_err = (out.float() - ref.float()).abs().max().item()
+            nolse_err = (out_nolse.float() - ref.float()).abs().max().item()
+            btol = 2e-2 if dtype == "bfloat16" else 1e-4
+            bwd = {}
+            for name, a, b in zip(("dq", "dk", "dv"), grads, rgrads):
+                scale = max(1.0, b.float().abs().max().item())
+                bwd[name] = (a.float() - b.float()).abs().max().item() / scale
+            # the backward again, directly: bitwise repeatable
+            qd, kd, vd = (x.detach() for x in (q, k, v))
+            gd = g.to(dt)
+            extra = {}
+            o2, lse, bits = flash_attention_forward(qd, kd, vd, rate, seed, bq,
+                                                    with_lse=True)
+            runs = [flash_self_attention_backward(qd, kd, vd, o2, gd, lse, rate, seed, bq,
+                                                  keep_bits=bits)
+                    for _ in range(2)]
+            extra["bitwise_repeatable"] = all(torch.equal(a, b) for a, b in zip(*runs))
+            if bits is not None:
+                extra["keep_bits_equal_plain"] = torch.equal(
+                    bits, dropout_keep_bits(seed, rate, 8, n, bq, "cuda"))
+            torch.cuda.synchronize()
+            ok = (bool(torch.isfinite(out).all()) and fwd_err <= tol
+                  and nolse_err <= tol and all(e <= btol for e in bwd.values())
+                  and all(extra.values()))
+            log("kernel_check", kernel="flash_self_attention", dtype=dtype,
+                shape=[1, 8, n, d], dropout=rate, max_abs_err=fwd_err,
+                max_abs_err_without_lse=nolse_err, tol=tol,
+                bwd_err_over_scale=bwd, bwd_tol=btol, **extra, ok=ok)
+            if not ok:
+                raise AssertionError(f"flash kernels disagree: {dtype} n={n} d={d} "
+                                     f"rate={rate} fwd={fwd_err} {nolse_err} "
+                                     f"bwd={bwd} {extra}")
+            if (dtype, n, d, rate) == ("bfloat16", 2048, 64, 0.1):
+                errs = {"fwd": fwd_err, "bwd": max(bwd.values()) * max(
+                    1.0, max(b.float().abs().max().item() for b in rgrads))}
+    return errs
 
-    # times at the policy's shape, bf16: the forward without dropout (act's
-    # use) and with dropout 0.1 (training's), each beside SDPA at the same
-    # dropout rate; the backward with dropout 0.1. SDPA is a yardstick only.
-    n, d, bh = 2048, 64, 8
+
+def flash_times() -> dict:
+    """The flash kernels' times at the policy's shape, [1, 8, 2048, 64] bf16,
+    on the device reading (`device_ms`) with the host loop's beside it,
+    called as the policy calls them, through `flash_self_attention` and
+    autograd: the forward without dropout (act's call, no gradient) and with
+    dropout 0.1 on inputs that need the gradient (training's: the LSE and
+    the keep bits), the backward at dropout 0.1; SDPA's forward and backward
+    at the same dropout rate (a yardstick only) and the plain version, the
+    same way."""
+    import torch
+    import torch.nn.functional as F
+    from manigaussian_tpu_torch.ops.flash_attention import (
+        flash_self_attention, flash_self_attention_reference)
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    n, d = 2048, 64
     q, k, v, g = (torch.randn(1, 8, n, d, generator=gen, device="cuda")
                   .to(torch.bfloat16) for _ in range(4))
     sd = torch.tensor([1234])
-    out, lse = flash_attention_forward(q, k, v, 0.1, 1234, 256, with_lse=True)
     qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+    out = flash_self_attention(qg, kg, vg, 0.1, sd, 256)
     ref = flash_self_attention_reference(qg, kg, vg, 0.1, 1234, 256)
     sdpa = F.scaled_dot_product_attention(qg, kg, vg, dropout_p=0.1)
-    elt = q.element_size()
+    grad = lambda y: torch.autograd.grad(y, (qg, kg, vg), g, retain_graph=True)
+
+    def both(fn, plain=False):
+        """device_ms and host_loop_ms of `fn`, and its kernels' device times"""
+        iters = 3 if plain else 20
+        kernels = {}
+        return {"device": device_ms(fn, iters=iters, warmup=1, by_kernel=kernels),
+                "host_loop": cuda_ms(fn, iters=iters, warmup=1),
+                **({} if plain else {"kernels": kernels})}
+
+    with torch.no_grad():
+        times = {
+            "fwd_act": both(lambda: flash_self_attention(q, k, v, 0.0, sd, 256)),
+            "sdpa_fwd_0": both(lambda: F.scaled_dot_product_attention(q, k, v)),
+            "sdpa_fwd_0.1": both(lambda: F.scaled_dot_product_attention(
+                q, k, v, dropout_p=0.1)),
+            "plain_fwd_0": both(lambda: flash_self_attention_reference(
+                q, k, v, 0.0, 1234, 256), plain=True),
+            "plain_fwd_0.1": both(lambda: flash_self_attention_reference(
+                q, k, v, 0.1, 1234, 256), plain=True),
+        }
+    times.update({
+        "fwd_train": both(lambda: flash_self_attention(qg, kg, vg, 0.1, sd, 256)),
+        "bwd": both(lambda: grad(out)),
+        "sdpa_bwd_0.1": both(lambda: grad(sdpa)),
+        "plain_bwd_0.1": both(lambda: grad(ref), plain=True),
+    })
+    log("flash_times", shape=[1, 8, n, d], dtype="bfloat16", ms=times)
+    return times
+
+
+def phase_flash() -> dict:
+    """The flash forward (with and without dropout) and backward against the
+    plain version; ptxas's registers and spill of the wgmma kernels; then
+    their times at the policy's shape."""
+    errs = flash_checks()
+    build = {k: ptxas_report("flash_attention", k) for k in FLASH_WGMMA_KERNELS}
+    log("kernel_build", source="manigaussian_tpu_torch/csrc/flash_attention.cu",
+        **build)
+    if any(b["spill_bytes"] or b["wgmma_serialized"] for b in build.values()):
+        raise AssertionError(f"the wgmma flash kernels spill or serialize: {build}")
+
+    from manigaussian_tpu_torch.ops.flash_attention import keep_bits_words
+
+    times = flash_times()
+    n, d, bh = 2048, 64, 8
+    elt = 2
     fwd_flops, fwd_bytes = 4.0 * bh * n * n * d, 4.0 * bh * n * d * elt
+    # the keep bits: training's forward writes them, the backward reads them
+    bits_bytes = 4.0 * bh * n * keep_bits_words(n)
     int_ms = DROPOUT_INT_OPS * bh * n * n / PEAK_INT32 * 1e3
-
-    def fwd_times(rate):
-        return {"ms": cuda_ms(lambda: flash_self_attention(q, k, v, rate, sd, 256)),
-                "plain_ms": cuda_ms(lambda: flash_self_attention_reference(
-                    q, k, v, rate, 1234, 256)),
-                "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-                    q, k, v, dropout_p=rate))}
-
-    def fwd_bound(rate):
-        ms, by = bound(fwd_flops, fwd_bytes, PEAK_FLOPS["bfloat16"])
-        return (max(ms, int_ms), "operations") if rate > 0 else (ms, by)
-
-    variants = {}
-    for rate in (0.0, 0.1):
-        times = fwd_times(rate)
-        bound_ms, bound_by = fwd_bound(rate)
-        variants[rate] = {**times, "bound_ms": bound_ms, "bound_by": bound_by}
-        log("kernel_time", kernel="flash_self_attention_fwd", shape=[1, 8, n, d],
-            dtype="bfloat16", dropout=rate, library_dropout_p=rate,
-            flops=fwd_flops, bytes=fwd_bytes,
-            mask_int_ops=DROPOUT_INT_OPS * bh * n * n if rate > 0 else 0,
-            **times, bound_ms=bound_ms, bound_by=bound_by,
-            bound_parts_ms={"tensor": fwd_flops / PEAK_FLOPS["bfloat16"] * 1e3,
-                            "bytes": fwd_bytes / PEAK_BYTES * 1e3,
-                            "int32": int_ms if rate > 0 else 0.0},
-            factor_vs_library=times["ms"] / times["library_ms"],
-            tflops=fwd_flops / times["ms"] / 1e9)
     source = "manigaussian_tpu_torch/csrc/flash_attention.cu"
+
+    def variant(kind, lib, plain, bound_ms, bound_by, **extra):
+        t = times[kind]
+        rec = {"ms": t["device"], "host_loop_ms": t["host_loop"],
+               "plain_ms": times[plain]["device"],
+               "library_ms": times[lib]["device"],
+               "library_host_loop_ms": times[lib]["host_loop"],
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "factor_vs_bound": t["device"] / bound_ms,
+               "factor_vs_library": t["device"] / times[lib]["device"], **extra}
+        return rec
+
+    tensor_ms, by = bound(fwd_flops, fwd_bytes, PEAK_FLOPS["bfloat16"])
+    act = variant("fwd_act", "sdpa_fwd_0", "plain_fwd_0", tensor_ms, by,
+                  dropout=0.0, with_lse=False)
+    train_ms, _ = bound(fwd_flops, fwd_bytes + bits_bytes, PEAK_FLOPS["bfloat16"])
+    train = variant("fwd_train", "sdpa_fwd_0.1", "plain_fwd_0.1",
+                    max(train_ms, int_ms), "operations", dropout=0.1,
+                    with_lse=True, writes_keep_bits=True)
+    for rec in (act, train):
+        nbytes = fwd_bytes + (bits_bytes if rec["dropout"] else 0.0)
+        log("kernel_time", kernel="flash_self_attention_fwd", shape=[1, 8, n, d],
+            dtype="bfloat16", flops=fwd_flops, bytes=nbytes,
+            mask_int_ops=DROPOUT_INT_OPS * bh * n * n if rec["dropout"] else 0,
+            bound_parts_ms={"tensor": fwd_flops / PEAK_FLOPS["bfloat16"] * 1e3,
+                            "bytes": nbytes / PEAK_BYTES * 1e3,
+                            "int32": int_ms if rec["dropout"] else 0.0},
+            tflops=fwd_flops / rec["ms"] / 1e9, **rec)
     # the record carries training's variant (dropout 0.1, as on the main
     # path) and act's variant beside it
     records = [{"name": "flash_self_attention_fwd", "route": "cuda",
                 "source": source,
                 "replaces": "manigaussian_tpu/ops/flash_attention.py:138",
-                "launches": None, "max_abs_err": errs["fwd"], **variants[0.1],
-                "dropout": 0.1, "no_dropout": variants[0.0]}]
+                "launches": None, "max_abs_err": errs["fwd"], **train,
+                "no_dropout": act}]
 
     bwd_flops = 10.0 * bh * n * n * d
-    bwd_bytes = 8.0 * bh * n * d * elt + 4.0 * bh * n
-    times = {"ms": cuda_ms(lambda: flash_self_attention_backward(
-                 q, k, v, out, g, lse, 0.1, 1234, 256)),
-             "plain_ms": cuda_ms(lambda: torch.autograd.grad(
-                 ref, (qg, kg, vg), g, retain_graph=True)),
-             "library_ms": cuda_ms(lambda: torch.autograd.grad(
-                 sdpa, (qg, kg, vg), g, retain_graph=True))}
+    # q, k, v, out, dO in; dq, dk, dv out; the LSE and the keep bits in (the
+    # backward hashes no mask)
+    bwd_bytes = 8.0 * bh * n * d * elt + 4.0 * bh * n + bits_bytes
     bound_ms, bound_by = bound(bwd_flops, bwd_bytes, PEAK_FLOPS["bfloat16"])
-    # the mask's integer work counted once (the kernels rebuild it in both
-    # the dK/dV and the dQ pass)
-    bound_ms = max(bound_ms, int_ms)
+    bwd = variant("bwd", "sdpa_bwd_0.1", "plain_bwd_0.1", bound_ms, bound_by,
+                  dropout=0.1, reads_keep_bits=True)
     records.append({"name": "flash_self_attention_bwd", "route": "cuda",
                     "source": source,
                     "replaces": "manigaussian_tpu/ops/flash_attention.py:166",
-                    "launches": None, "max_abs_err": errs["bwd"], **times,
-                    "bound_ms": bound_ms, "bound_by": bound_by, "dropout": 0.1})
+                    "launches": None, "max_abs_err": errs["bwd"], **bwd})
     log("kernel_time", kernel="flash_self_attention_bwd", shape=[1, 8, n, d],
-        dtype="bfloat16", dropout=0.1, library_dropout_p=0.1, flops=bwd_flops,
-        bytes=bwd_bytes, **times, bound_ms=bound_ms, bound_by=bound_by,
-        factor_vs_library=times["ms"] / times["library_ms"],
-        tflops=bwd_flops / times["ms"] / 1e9)
+        dtype="bfloat16", flops=bwd_flops, bytes=bwd_bytes,
+        tflops=bwd_flops / bwd["ms"] / 1e9, **bwd)
     return {r["name"]: r for r in records}
 
 
@@ -475,20 +610,23 @@ CONV_TOL = {"float32": {"fwd": 1e-5, "dw": 1e-5},
 
 
 def ptxas_report(source: str, kernel: str) -> dict:
-    """Registers and spill bytes of the entry function whose mangled name
-    contains `kernel`, from the compiler's log beside the built library."""
+    """Registers and spill bytes of the entry functions whose mangled name
+    contains `kernel` (the most registers and the spill summed over a
+    template's instantiations), and whether ptxas serialized their wgmma,
+    from the compiler's log beside the built library."""
     import re
     from manigaussian_tpu_torch.ops import _cuda
     text = _cuda.library_path(source).with_suffix(".log").read_text()
-    m = re.search(r"Compiling entry function '[^']*" + re.escape(kernel)
-                  + r"[^']*'.*?(\d+) bytes spill stores, (\d+) bytes spill loads"
-                  r".*?Used (\d+) registers", text, re.S)
-    if m is None:
+    found = re.findall(r"Compiling entry function '[^']*" + re.escape(kernel)
+                       + r"[^']*'.*?(\d+) bytes spill stores, (\d+) bytes spill "
+                       r"loads.*?Used (\d+) registers", text, re.S)
+    if not found:
         raise AssertionError(f"no ptxas report for {kernel} in {source}.log")
-    return {"registers": int(m.group(3)),
-            "spill_bytes": int(m.group(1)) + int(m.group(2)),
+    return {"registers": max(int(m[2]) for m in found),
+            "spill_bytes": sum(int(m[0]) + int(m[1]) for m in found),
+            "instantiations": len(found),
             "wgmma_serialized": bool(re.search(
-                r"C7512[^\n]*" + re.escape(kernel), text))}
+                r"C75(?:12|20)[^\n]*" + re.escape(kernel), text))}
 
 
 def phase_conv() -> dict:
@@ -871,6 +1009,8 @@ def phase_profile(step, label: str, calls: int = 3) -> dict:
                   and e.key.startswith("aten::")),
                  key=lambda e: -e.device_time_total)
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / calls
+    flash_ms = sum(e.self_device_time_total for e in kernels
+                   if "flash_" in e.key) / 1e3 / calls
     # device time of the kernels that start inside each range's device span;
     # autograd launches the backward's kernels from its own thread, outside
     # the "update/backward" range, so the backward's share is the rest
@@ -894,6 +1034,7 @@ def phase_profile(step, label: str, calls: int = 3) -> dict:
                kernel_ms_per_call=device_ms, range_kernel_ms_per_call=ranges,
                device_busy_share=device_ms / wall_ms if wall_ms else None,
                kernels_launched_per_call=sum(e.count for e in kernels) / calls,
+               flash_kernel_ms_per_call=flash_ms,
                top_kernels_ms_count=rows(kernels, "self_device_time_total"),
                top_aten_ops_device_ms_count=rows(ops, "device_time_total"))
     log("profile", **out)
@@ -1252,7 +1393,11 @@ def phase_train_routes(demos: str, label: str, variant: str, overrides,
         f"{variant} training step, route {profile}", calls=2)
 
 
-def main() -> int:
+def main(argv) -> int:
+    if argv not in ([], ["--flash-times"]):
+        print(f"chip_smoke: unknown arguments {argv}; takes none, or "
+              "--flash-times", file=sys.stderr)
+        return 2
     try:
         import torch
     except ImportError:
@@ -1285,6 +1430,12 @@ def main() -> int:
                 "conv3d_fwd": conv3d_forward, "conv3d_dw": conv3d_dw_workspace,
                 "conv3d_dw_resident": conv3d_dw_resident}
 
+    if argv == ["--flash-times"]:
+        # the flash kernels' times alone, for an A/B of two checkouts in one
+        # call (run this file from the root of each in turn)
+        phase_build()
+        flash_times()
+        return 0
     t_start = time.time()
     phase_build()
     records = {**phase_flash(), **phase_blend(), **phase_conv()}
@@ -1332,4 +1483,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -856,51 +856,6 @@ int launch_dw_bf16(const void* x, const void* dy, void* out, Volume vol, int ci,
   return static_cast<int>(cudaGetLastError());
 }
 
-// cuTensorMapEncodeTiled, looked up through the CUDA runtime at first use
-// (the library does not link libcuda).
-using EncodeTiledFn = CUresult (*)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled_fn() {
-  static EncodeTiledFn fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult status;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                &status) != cudaSuccess ||
-        status != cudaDriverEntryPointSuccess)
-      p = nullptr;
-    return reinterpret_cast<EncodeTiledFn>(p);
-  }();
-  return fn;
-}
-
-// The tensor map of a contiguous bf16 array of `rank` dimensions, `dims`
-// innermost first, copied in boxes of `box` elements; a part of a box outside
-// the array is filled with zeros.
-bool make_map(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
-              const uint32_t* box, CUtensorMapSwizzle swizzle) {
-  EncodeTiledFn encode = encode_tiled_fn();
-  if (encode == nullptr) return false;
-  cuuint64_t gdim[3], gstride[2];
-  cuuint32_t bdim[3], estride[3];
-  uint64_t pitch = sizeof(bf16);
-  for (int i = 0; i < rank; ++i) {
-    gdim[i] = dims[i];
-    bdim[i] = box[i];
-    estride[i] = 1;
-    pitch *= dims[i];
-    if (i + 1 < rank) gstride[i] = pitch;
-  }
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
-                const_cast<void*>(base), gdim, gstride, bdim, estride,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 int launch_fwd_wgmma(const void* x, const void* w, void* y, Volume vol, int ci,
                      int co, cudaStream_t st) {
   const int total = vol.nb * vol.d * vol.h * vol.w;

@@ -1,5 +1,6 @@
-// Flash self-attention for Hopper (sm_90a): the forward (with dropout and the
-// log-sum-exp it saves for the backward) and the backward.
+// Flash self-attention for Hopper (sm_90a): the forward (with dropout, the
+// log-sum-exp it saves for the backward and, in training, the dropout mask
+// as bits) and the backward.
 //
 // Replaces the Pallas kernels of manigaussian_tpu/ops/flash_attention.py:
 //   * `_fwd_kernel` (pallas_call in `_flash_fwd_impl`):
@@ -15,49 +16,115 @@
 // Dropout: the keep mask is the TPU kernel's murmur3 hash of
 // (seed, bh·65536 + i, r, col), with i = row / block_q the index of the TPU's
 // query block and r = row % block_q the row inside it, so the mask is the
-// same bit for bit. The row sum of the online softmax adds the unmasked
+// same bit for bit. The hash is murmur3's finaliser of row part ^
+// col·0x85EBCA77, the row part (seed + (bh·65536 + i)·2654435761) ^
+// r·0x9E3779B1: the kernels compute it once per row and the column part once
+// per key (the forward's producer warp writes a tile's beside its copies), so
+// no division sits in an inner loop (`Dropout` has the rest). The row sum of the online softmax adds the unmasked
 // probabilities; only the P·V product sees the mask, and 1/(1-rate) is
 // applied with the final normalisation.
 //
 // Bounds on an H100 at the policy's shapes (BH=8, N=2048, D=64, bf16):
 //   forward:  4·BH·N²·D = 8.6 GFLOP / 989 TFLOP/s ≈ 8.7 us (its 8.4 MB of
-//             q, k, v, out take ≈ 2.5 us at 3.35 TB/s);
-//   backward: 10·BH·N²·D = 21.5 GFLOP ≈ 21.7 us (≈ 17 MB ≈ 5 us).
-// Both are bound by operations, and the design is the FlashAttention-2 one:
-// scores and probabilities never leave the SM.
-//   * forward: one CTA of 4 warps per (bh, 64-row query block); each warp owns
-//     16 rows. K/V tiles of 64 keys are staged in shared memory with cp.async,
-//     double buffered. Q·K^T and P·V on the tensor cores with mma.sync
-//     m16n8k16 (fp32 accumulators in registers); the S accumulator fragment is
-//     re-packed in registers as the A operand of P·V. Online softmax with a
-//     running fp32 row max and row sum.
+//             q, k, v, out take ≈ 2.5 us at 3.35 TB/s); with dropout the
+//             mask's integer work, 7 operations a score in the factored form
+//             below (`Dropout`), 14 us;
+//   backward: 10·BH·N²·D = 21.5 GFLOP ≈ 21.7 us (≈ 21 MB with the keep
+//             bits ≈ 6 us).
+// Both are bound by the tensor cores (and the integer pipes), so the bf16
+// kernels are FlashAttention-3's shape on wgmma, fed by TMA:
+//   * a CTA of three warpgroups: two consumers that own 64 rows each and a
+//     producer warp, one thread of which keeps TMA copies of the operand
+//     tiles in flight through a ring of shared-memory stages with mbarrier
+//     full/empty pairs (its other lanes write what the consumers read beside
+//     the tiles: column parts of the hash, LSE, delta, mask words). setmaxnreg
+//     gives the consumers 232 registers and the producer 40
+//     (2·232 + 40 = 3·168, what 384 threads are launched with);
+//   * every product is wgmma m64nNk16 with A in registers: the fragment of
+//     mma.sync for each warp's 16 rows. The operand loaded once per CTA (q,
+//     or k and v in the dK/dV pass) is read from memory straight into A
+//     registers (q scaled there in bf16: TMA cannot round); a product's
+//     probabilities are re-packed from its fp32 accumulators as the A operand
+//     of the next product. B comes from the TMA tiles through descriptors:
+//     K-major (k for S = q·k^T, dO for dP) or MN-major (v for P·V, dO for dV,
+//     q for dK, k for dQ) as they lie in memory, with the swizzle of their
+//     row's width (2·D bytes: 128, 64 or 32);
+//   * the softmax in exp2: s·log2(e) is one FMA into ex2.approx (relative
+//     error ≈ 2^-22 against expf's ≈ 2^-23, far below the bf16 rounding of P
+//     that follows); the running max is kept in log2 units, the saved LSE in
+//     natural units (m·ln 2 + ln l), which the backward scales by log2(e);
+//   * ragged N: the TMA boxes are 3-D ([BH, N, D]), so rows past N arrive as
+//     zeros; keys past N score -inf in the forward (in a copy of the softmax
+//     for the last tile alone), carry LSE = +inf in the dK/dV pass and need
+//     nothing in the dQ pass (their k rows are zeros); rows past N are not
+//     stored.
+//   * forward: one CTA per (bh, 128 query rows): 128 CTAs, one wave, at the
+//     policy's shape; 128-key K and V tiles, four stages. S = q·k^T is
+//     m64n128, O += P·V m64nD. The two consumer warpgroups alternate by named
+//     barriers: one issues its P·V of tile t-1 and its S of tile t while the
+//     other runs its softmax and dropout mask on the integer and special
+//     function pipes (the mask of an element: five integer-pipe operations
+//     and two multiplies for the hash and its compare, then two predicated
+//     instructions; `Dropout`, `keep_or_drop`). With the LSE in training, the forward also writes the
+//     keep mask as bits (`keep_bits`, [BH, N, W] uint32, W = ⌈N/128⌉·4, bit
+//     c % 32 of word c / 32 for key c, 0 past N): 4 MB at the policy's shape;
 //   * backward, deterministic, no atomics (the TPU kernel accumulates dK/dV
-//     across its sequential grid; CUDA blocks run in no order):
-//       (0) delta_i = rowsum(dO ∘ O) in fp32, one warp per row;
-//       (a) one CTA per (bh, 64-key tile): loop over query tiles, recompute
-//           P^T from q, k and the forward's LSE, accumulate dK and dV in
-//           registers;
-//       (b) one CTA per (bh, 64-query tile): loop over key tiles, accumulate
-//           dQ in registers.
+//     across its sequential grid; CUDA blocks run in no order), bitwise
+//     repeatable:
+//       (b) first, then (a): (b) writes delta_i = rowsum(dO ∘ O) in fp32
+//           and qs = bf16(q·bf16(scale)) for (a) from its A fragments;
+//       (a) one CTA per (bh, 128 keys), looping over 64-query stages (six in
+//           the ring, as in (b)) of qs,
+//           q and dO (TMA), with the stage's LSE, delta and mask words
+//           written beside them by the producer warp: S^T = k·qs^T and
+//           dP^T = v·dO^T (m64n64), then dV += P_d^T·dO and dK += dS^T·q
+//           (m64nD), the accumulators in registers;
+//       (b) one CTA per (bh, 128 queries), looping over 64-key stages of k
+//           and v: S and dP (m64n64), dQ += dS·k (m64nD).
+//     The consumer warpgroups of both passes alternate as in the forward:
+//     one issues the products of stage t-1's dS (and P) and stage t's S
+//     and dP while the other computes its dS.
+//     With dropout both passes read the forward's keep bits (a load of a
+//     stage's words, then an AND an element) and hash nothing: on an H100 at
+//     the policy's shape that was faster than hashing the mask in both
+//     passes.
 //     delta is rowsum(dO ∘ O), equal to Σ_j P_ij·dP_ij (the TPU kernel's
 //     form) up to the rounding of O to its dtype.
-//   * fp32: the same tilings on plain FMA (full fp32, no TF32), one thread
-//     per row.
-// Ragged N is masked: keys past N score -inf, rows past N are not stored.
-// wgmma, TMA and warp specialisation are left for a later change.
+//   * fp32 (the parity paths, off the main path): plain FMA (full fp32, no
+//     TF32), one thread per row.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int kBlockM = 64;   // query rows per CTA
-constexpr int kBlockN = 64;   // keys per shared-memory tile
-constexpr int kWarps = 4;
+using bf16 = __nv_bfloat16;
+using namespace hopper;
+
+constexpr int kBlockM = 64;   // fp32 forward: query rows per CTA
+constexpr int kWarps = 4;     // fp32 delta pass: rows per CTA
 constexpr int kThreads = kWarps * 32;
 
+constexpr uint32_t kColMul = 0x85EBCA77u;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// The keep test, fmix(row part ^ column part) >= thresh with fmix murmur3's
+// finaliser (h ^= h >> 16; h *= 0x85EBCA6B; h ^= h >> 13; h *= 0xC2B2AE35;
+// h ^= h >> 16), with its first step taken by each part alone, where it is computed once
+// (it distributes over the XOR), and its last step folded into the compare:
+// h ^ (h >> 16) >= T exactly when h ^ (T >> 16) >= T (the step leaves the
+// high half alone, and where the high halves tie, the low half it makes is
+// the one T >> 16 makes). An element costs five integer-pipe operations (the
+// compare among them) and two multiplies, where the direct form takes eight
+// and two.
 struct Dropout {
   bool on;
   uint32_t seed;
@@ -65,65 +132,55 @@ struct Dropout {
   int block_q;
   float scale;  // 1 / (1 - rate)
 
-  // keep factor of element (query row, key col) of head bh: 0 or 1/(1-rate)
-  __device__ __forceinline__ float factor(int bh, int row, int col) const {
-    if (!on) return 1.f;
+  // the part of the hash that depends on the query row only, mixed
+  __device__ __forceinline__ uint32_t row_mix(int bh, int row) const {
     const uint32_t i = static_cast<uint32_t>(row / block_q);
     const uint32_t r = static_cast<uint32_t>(row % block_q);
-    uint32_t h = seed + (static_cast<uint32_t>(bh) * 65536u + i) * 2654435761u;
-    h ^= r * 0x9E3779B1u;
-    h ^= static_cast<uint32_t>(col) * 0x85EBCA77u;
-    h ^= h >> 16;
-    h *= 0x85EBCA6Bu;
+    const uint32_t h = (seed + (static_cast<uint32_t>(bh) * 65536u + i) * 2654435761u) ^
+                       (r * 0x9E3779B1u);
+    return h ^ (h >> 16);
+  }
+  // the key column's part, col·kColMul, mixed
+  __device__ __forceinline__ static uint32_t col_mix(int col) {
+    const uint32_t h = static_cast<uint32_t>(col) * kColMul;
+    return h ^ (h >> 16);
+  }
+  // the hash of an element from its row's and its column's mixed parts, with
+  // the last step folded in: the element is kept where it is >= thresh
+  __device__ __forceinline__ uint32_t hashed(uint32_t row_mix, uint32_t col_mix) const {
+    uint32_t h = (row_mix ^ col_mix) * 0x85EBCA6Bu;
     h ^= h >> 13;
     h *= 0xC2B2AE35u;
-    h ^= h >> 16;
-    return h >= thresh ? 1.f : 0.f;
+    return h ^ (thresh >> 16);
+  }
+  // keep factor of element (query row, key col) of head bh: 0 or 1
+  __device__ __forceinline__ float factor(int bh, int row, int col) const {
+    if (!on) return 1.f;
+    return hashed(row_mix(bh, row), col_mix(col)) >= thresh ? 1.f : 0.f;
   }
 };
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool valid) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  int bytes = valid ? 16 : 0;  // 0 source bytes: the 16 bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(bytes));
+// The forward's mask of one element: where hashed >= thresh (kept) ORs `bit`
+// into `bits`, elsewhere zeroes `p`: one compare and two predicated
+// instructions, where C++ makes the compiler turn the predicate into a value
+// and back.
+__device__ __forceinline__ void keep_or_drop(float& p, uint32_t& bits,
+                                             uint32_t hashed, uint32_t thresh,
+                                             uint32_t bit) {
+  asm("{\n"
+      ".reg .pred k;\n"
+      "setp.ge.u32 k, %2, %3;\n"
+      "@!k mov.f32 %0, 0f00000000;\n"
+      "@k or.b32 %1, %1, %4;\n"
+      "}\n"
+      : "+f"(p), "+r"(bits)
+      : "r"(hashed), "r"(thresh), "r"(bit));
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
-
-// c += a · b, a 16x16 bf16 (row), b 16x8 bf16 (col), c 16x8 fp32.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -139,261 +196,359 @@ __device__ __forceinline__ uint32_t scale_bf16x2(uint32_t x, float s) {
   return pack_bf16(f.x * s, f.y * s);
 }
 
-// Fragment loaders from a row-major shared-memory tile with `stride` elements
-// per row (the m16n8k16 layouts; g = lane/4, q = lane%4).
-// A operand, rows r0..r0+15, columns c0..c0+15.
-__device__ __forceinline__ void load_a(uint32_t (&a)[4],
-                                       const __nv_bfloat16* s, int stride,
-                                       int r0, int c0, int lane) {
-  ldmatrix_x4(a, s + (r0 + (lane % 16)) * stride + c0 + (lane / 16) * 8);
-}
-// B operands of two n8 tiles where B[k][n] = X[n][k]: X rows n0..n0+15,
-// columns k0..k0+15. b[0], b[1] feed n-tile n0/8, b[2], b[3] n-tile n0/8 + 1.
-__device__ __forceinline__ void load_b_nt(uint32_t (&b)[4],
-                                          const __nv_bfloat16* s, int stride,
-                                          int n0, int k0, int lane) {
-  const int mat = lane / 8;
-  ldmatrix_x4(b, s + (n0 + (lane % 8) + (mat / 2) * 8) * stride + k0 +
-                     (mat % 2) * 8);
-}
-// B operands of two n8 tiles where B[k][n] = Y[k][n]: Y rows k0..k0+15,
-// columns n0..n0+15.
-__device__ __forceinline__ void load_b_t(uint32_t (&b)[4],
-                                         const __nv_bfloat16* s, int stride,
-                                         int k0, int n0, int lane) {
-  const int mat = lane / 8;
-  ldmatrix_x4_trans(b, s + (k0 + (lane % 8) + (mat % 2) * 8) * stride + n0 +
-                           (mat / 2) * 8);
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
+  const uint32_t a = smem_u32(p);
+  return p + (((a + 1023u) & ~1023u) - a);
 }
 
-// Copy `rows` rows of D bf16 values starting at `row0` of a [n, D] matrix into
-// a shared tile with `stride` elements per row; rows past n are zero-filled.
+// ------------------------------------------------- warp-specialized CTAs
+constexpr int kConsumers = 2;                       // consumer warpgroups
+constexpr int kWsThreads = (kConsumers + 1) * 128;  // and a producer warpgroup
+// The CTA starts with 168 registers a thread (65,536 / 384, in eights); what
+// the producer gives up the consumers take.
+constexpr int kConsumerRegs = 232;
+constexpr int kProducerRegs = 40;
+static_assert(kConsumers * kConsumerRegs + kProducerRegs <=
+                  (kConsumers + 1) * (65536 / kWsThreads / 8 * 8),
+              "setmaxnreg.inc would wait for registers that never come");
+constexpr int kSchedBarrier = 1;  // named barriers 1, 2: the consumers' turns
+
+constexpr int kFwdRows = 128;  // query rows per forward CTA, 64 per consumer
+constexpr int kFwdKeys = 128;  // keys per forward stage
+constexpr int kFwdStages = 4;
+constexpr int kBwdRows = 128;  // keys (dK/dV) or queries (dQ) per CTA
+constexpr int kBwdTile = 64;   // queries (dK/dV) or keys (dQ) per stage
+constexpr int kBwdStages = 6;
+
+// words of a row of the keep bits: a 128-key tile is one 16-byte vector
+__host__ __device__ __forceinline__ int keep_words(int n) {
+  return (n + 127) / 128 * 4;
+}
+
 template <int D>
-__device__ __forceinline__ void stage_rows(__nv_bfloat16* s, int stride,
-                                           const __nv_bfloat16* g, int row0,
-                                           int n, int tid) {
-  constexpr int kVecPerRow = D / 8;
-  for (int i = tid; i < kBlockN * kVecPerRow; i += kThreads) {
-    const int r = i / kVecPerRow, c = (i % kVecPerRow) * 8;
-    const bool ok = row0 + r < n;
-    cp_async16(&s[r * stride + c],
-               g + (ok ? static_cast<size_t>(row0 + r) * D + c : 0), ok);
+struct Layout {
+  static_assert(D == 16 || D == 32 || D == 64, "head dim");
+  static constexpr int kRowBytes = 2 * D;  // a tile row; also its swizzle
+  static constexpr uint32_t kGroup = 8 * kRowBytes;  // 8 rows: the SBO
+  static constexpr int kFwdTile = kFwdKeys * kRowBytes;
+  static constexpr int kFwdStage = 2 * kFwdTile;  // k, v
+  // the stages, then each stage's mixed column parts of the dropout hash
+  static constexpr int kFwdSmem = kFwdStages * (kFwdStage + kFwdKeys * 4) + 1024;
+  static constexpr int kBwdTileBytes = kBwdTile * kRowBytes;
+  // dK/dV stage: qs, q, dO, then the LSE·log2(e) and delta of the stage's 64
+  // queries and their mask words [4][64]
+  static constexpr int kKvStats = kBwdTile * 4 * (2 + 4);
+  static constexpr int kKvStage =
+      (3 * kBwdTileBytes + kKvStats + 1023) / 1024 * 1024;
+  static constexpr int kKvSmem = kBwdStages * kKvStage + 1024;
+  static constexpr int kQStage = 2 * kBwdTileBytes;  // dQ stage: k, v
+  static constexpr int kQSmem = kBwdStages * kQStage + 1024;
+  static_assert(kBwdTileBytes % 1024 == 0, "tiles stay 1024-byte aligned");
+};
+
+// The A fragments of rows r0 and r0 + 8 (the m16k16 fragment of mma.sync
+// for a warp's 16 rows) of a [n, D] bf16 matrix, zero past row n, each
+// value times `s` rounded to bf16 (s = 1: unchanged).
+template <int D>
+__device__ __forceinline__ void load_a_rows(uint32_t (&a)[D / 16][4],
+                                            const bf16* m, int r0, int n,
+                                            int qd, float s) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = r0 + (i & 1) * 8, c = kk * 16 + (i >> 1) * 8 + 2 * qd;
+      const uint32_t x =
+          r < n ? *reinterpret_cast<const uint32_t*>(m + static_cast<size_t>(r) * D + c)
+                : 0u;
+      a[kk][i] = s == 1.f ? x : scale_bf16x2(x, s);
+    }
+}
+
+// The A fragments of k16 step kk from an accumulator of 16·K16 columns in
+// the wgmma layout: columns 16kk .. 16kk + 15 of the thread's two rows.
+template <int K16>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[K16][4],
+                                       const float (&acc)[K16 * 8]) {
+#pragma unroll
+  for (int kk = 0; kk < K16; ++kk) {
+    a[kk][0] = pack_bf16(acc[8 * kk + 0], acc[8 * kk + 1]);
+    a[kk][1] = pack_bf16(acc[8 * kk + 2], acc[8 * kk + 3]);
+    a[kk][2] = pack_bf16(acc[8 * kk + 4], acc[8 * kk + 5]);
+    a[kk][3] = pack_bf16(acc[8 * kk + 6], acc[8 * kk + 7]);
+  }
+}
+
+// Stores rows r0 and r0 + 8 of a [64 x D] accumulator (wgmma layout) into a
+// [n, D] bf16 matrix, rows past n skipped.
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* m, const float (&acc)[D / 2],
+                                           int r0, int n, int qd, float s0,
+                                           float s1) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + 8 * h;
+    if (r >= n) continue;
+    const float sc = h ? s1 : s0;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(m + static_cast<size_t>(r) * D + j * 8 + 2 * qd) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * h] * sc, acc[4 * j + 2 * h + 1] * sc);
   }
 }
 
 // ----------------------------------------------------------------- bf16 fwd
+// A consumer thread (warp w, lane 4g + q of its warpgroup) owns rows
+// r0 = row0 + 64·wg + 16w + g and r0 + 8 and, in a 128-key tile, the keys
+// 8j + 2q + e (j < 16, e < 2): S element 4j + 2h + e is (r0 + 8h, key).
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                          const __nv_bfloat16* __restrict__ k,
-                          const __nv_bfloat16* __restrict__ v,
-                          __nv_bfloat16* __restrict__ out,
-                          float* __restrict__ lse, int n, float scale,
+__global__ void __launch_bounds__(kWsThreads, 1)
+    flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap map_k,
+                          const __grid_constant__ CUtensorMap map_v,
+                          const bf16* __restrict__ q, bf16* __restrict__ out,
+                          float* __restrict__ lse,
+                          uint32_t* __restrict__ keep_bits, int n, float scale,
                           Dropout drop) {
-  static_assert(D % 16 == 0 && D <= 128, "head dim");
-  // +8 elements (16 B) per row: ldmatrix row addresses fall in distinct banks
-  constexpr int kStride = D + 8;
-  constexpr int kVecPerRow = D / 8;  // 16-byte vectors per row
-  __shared__ __align__(16) __nv_bfloat16 sq[kBlockM * kStride];
-  __shared__ __align__(16) __nv_bfloat16 sk[2][kBlockN * kStride];
-  __shared__ __align__(16) __nv_bfloat16 sv[2][kBlockN * kStride];
+  using L = Layout<D>;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ uint64_t full[kFwdStages], empty[kFwdStages];
+  unsigned char* smem = align_1024(smem_raw);
+  uint32_t* s_cols = reinterpret_cast<uint32_t*>(smem + kFwdStages * L::kFwdStage);
 
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
+  const int tid = threadIdx.x, wg = tid / 128;
   const int bh = blockIdx.y;
-  const int row0 = blockIdx.x * kBlockM;
-  const size_t head = static_cast<size_t>(bh) * n * D;
-  const __nv_bfloat16* qh = q + head;
-  const __nv_bfloat16* kh = k + head;
-  const __nv_bfloat16* vh = v + head;
+  const int n_tiles = (n + kFwdKeys - 1) / kFwdKeys;
 
-  const int num_tiles = (n + kBlockN - 1) / kBlockN;
-  stage_rows<D>(sk[0], kStride, kh, 0, n, tid);
-  stage_rows<D>(sv[0], kStride, vh, 0, n, tid);
-  cp_async_commit();
-
-  // Q block, scaled in bf16 (the TPU kernel's `q_blk * asarray(scale, dtype)`)
-  const float qscale = __bfloat162float(__float2bfloat16(scale));
-  for (int i = tid; i < kBlockM * kVecPerRow; i += kThreads) {
-    const int r = i / kVecPerRow, c = (i % kVecPerRow) * 8;
-    uint4 raw = make_uint4(0, 0, 0, 0);
-    if (row0 + r < n)
-      raw = *reinterpret_cast<const uint4*>(qh + static_cast<size_t>(row0 + r) * D + c);
-    uint32_t* w = reinterpret_cast<uint32_t*>(&raw);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) w[j] = scale_bf16x2(w[j], qscale);
-    *reinterpret_cast<uint4*>(&sq[r * kStride + c]) = raw;
+  if (tid == 0) {
+    for (int s = 0; s < kFwdStages; ++s) {
+      mbar_init(&full[s], 1);               // the producer's arrival with the bytes
+      mbar_init(&empty[s], 4 * kConsumers);  // one lane of every consumer warp
+    }
+    mbar_init_fence();
   }
   __syncthreads();
 
-  // A fragments of this warp's 16 query rows, one per 16-wide k step
-  uint32_t qa[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    load_a(qa[kk], sq, kStride, warp * 16, kk * 16, lane);
-
-  float o[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-  // rows g = lane/4 and g+8 of the warp's 16
-  float m_row[2] = {-CUDART_INF_F, -CUDART_INF_F};
-  float l_row[2] = {0.f, 0.f};
-  const int quad = lane % 4;
-  const int g = lane / 4;
-  const int ra = row0 + warp * 16 + g, rb = ra + 8;
-
-  for (int t = 0; t < num_tiles; ++t) {
-    const int buf = t & 1;
-    if (t + 1 < num_tiles) {
-      stage_rows<D>(sk[buf ^ 1], kStride, kh, (t + 1) * kBlockN, n, tid);
-      stage_rows<D>(sv[buf ^ 1], kStride, vh, (t + 1) * kBlockN, n, tid);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    // S = Q K^T for 16 rows x 64 keys: 8 n-tiles of m16n8
-    float s[kBlockN / 8][4];
-#pragma unroll
-    for (int j = 0; j < kBlockN / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-      for (int np = 0; np < kBlockN / 16; ++np) {
-        uint32_t b[4];
-        load_b_nt(b, sk[buf], kStride, np * 16, kk * 16, lane);
-        mma_bf16(s[2 * np], qa[kk], b[0], b[1]);
-        mma_bf16(s[2 * np + 1], qa[kk], b[2], b[3]);
-      }
-    }
-
-    const int key0 = t * kBlockN;
-    if (key0 + kBlockN > n) {
-#pragma unroll
-      for (int j = 0; j < kBlockN / 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = key0 + j * 8 + quad * 2 + (e & 1);
-          if (key >= n) s[j][e] = -CUDART_INF_F;
+  if (wg == kConsumers) {
+    // ------------------------------------------------------------ producer
+    reg_dealloc<kProducerRegs>();
+    if (tid < kConsumers * 128 + 32) {  // one warp: the tiles' column parts
+      const int lane = tid % 32;
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % kFwdStages;
+        mbar_wait(&empty[s], ((t / kFwdStages) & 1) ^ 1);
+        if (drop.on)
+          for (int i = lane; i < kFwdKeys; i += 32)
+            s_cols[s * kFwdKeys + i] = Dropout::col_mix(t * kFwdKeys + i);
+        __syncwarp();
+        if (lane == 0) {  // and one thread the copies
+          unsigned char* sk = smem + s * L::kFwdStage;
+          mbar_arrive_expect_tx(&full[s], L::kFwdStage);
+          tma_load_3d(sk, &map_k, &full[s], 0, t * kFwdKeys, bh);
+          tma_load_3d(sk + L::kFwdTile, &map_v, &full[s], 0, t * kFwdKeys, bh);
         }
       }
     }
+  } else {
+    // ----------------------------------------------------------- consumers
+    reg_alloc<kConsumerRegs>();
+    const int lane = tid % 32, warp = (tid % 128) / 32;
+    const int g = lane / 4, qd = lane % 4;
+    const int r0 = blockIdx.x * kFwdRows + wg * 64 + warp * 16 + g;
 
-    // online softmax over this tile
-    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+    // Q, scaled in bf16 (the TPU kernel's `q_blk * asarray(scale, dtype)`)
+    uint32_t qa[D / 16][4];
+    load_a_rows<D>(qa, q + static_cast<size_t>(bh) * n * D, r0, n, qd,
+                   __bfloat162float(__float2bfloat16(scale)));
+    const uint32_t rm[2] = {drop.row_mix(bh, r0), drop.row_mix(bh, r0 + 8)};
+    const int words = keep_words(n);
+
+    float o[D / 2];
 #pragma unroll
-    for (int j = 0; j < kBlockN / 8; ++j) {
-      mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
-      mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
-    }
-    float alpha[2];
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m2[2] = {-CUDART_INF_F, -CUDART_INF_F};  // running max, log2 units
+    float l[2] = {0.f, 0.f};
+    float s[64];
+    uint32_t pa[kFwdKeys / 16][4];  // P of the tile before, as A fragments
+
+    // P·V of tile t (its V in stage t % kFwdStages), P in pa
+    auto issue_pv = [&](int t) {
+      const uint32_t v_addr =
+          smem_u32(smem + (t % kFwdStages) * L::kFwdStage + L::kFwdTile);
+#pragma unroll
+      for (int kk = 0; kk < kFwdKeys / 16; ++kk)
+        wgmma_rs<D, 1>(o, pa[kk],
+                       desc_mn_major<L::kRowBytes>(v_addr + kk * 16 * L::kRowBytes,
+                                                   L::kFwdTile, L::kGroup),
+                       1);
+    };
+
+    // The online softmax of tile t's S (in place: P, then the dropped P) and
+    // the tile's keep bits; alpha, the rescale of O, out.
+    auto softmax = [&](int t, int stage, float (&alpha)[2], auto ragged_tag) {
+      constexpr bool kRagged = decltype(ragged_tag)::value;
+      const int key0 = t * kFwdKeys;
+      if constexpr (kRagged) {
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (key0 + 8 * j + 2 * qd + e >= n)
+              s[4 * j + e] = s[4 * j + 2 + e] = -CUDART_INF_F;
+      }
+      // online softmax over this tile, in log2 units
+      float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        mx[0] = fmaxf(mx[0], fmaxf(s[4 * j], s[4 * j + 1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s[4 * j + 2], s[4 * j + 3]));
+      }
+      float rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        const float m_new = fmaxf(m2[h], mx[h] * kLog2e);
+        alpha[h] = ex2(m2[h] - m_new);
+        m2[h] = m_new;
+      }
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float p = ex2(fmaf(s[4 * j + 2 * h + e], kLog2e, -m2[h]));
+            s[4 * j + 2 * h + e] = p;
+            rs[h] += p;
+          }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + rs[h];
+      if (!drop.on) return;
+      // the mask; the row sums above saw the unmasked probabilities. The
+      // mixed column parts of keys 8j + 2q and 8j + 2q + 1:
+      const uint2* cols = reinterpret_cast<const uint2*>(s_cols + stage * kFwdKeys) + qd;
+      // this thread's part of word w = j / 4 of the tile's keep bits: bit
+      // 8(j % 4) + e (+ 2q below) for key 8j + 2q + e, 0 past key n
+      uint32_t xw[2][4] = {{0u, 0u, 0u, 0u}, {0u, 0u, 0u, 0u}};
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const uint2 cm = cols[4 * j];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const bool in = !kRagged || key0 + 8 * j + 2 * qd + e < n;
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            keep_or_drop(s[4 * j + 2 * h + e], xw[h][j / 4],
+                         drop.hashed(rm[h], e ? cm.y : cm.x), drop.thresh,
+                         in ? 1u << (8 * (j % 4) + e) : 0u);
+        }
+      }
+      if (keep_bits == nullptr) return;
+      // the quad's four parts of each word OR-ed together, lane q left with
+      // word q: two exchanges (the half it keeps, then the word)
+      const bool hi = qd & 2, odd = qd & 1;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        uint32_t x[4];
+#pragma unroll
+        for (int w = 0; w < 4; ++w) x[w] = xw[h][w] << (2 * qd);
+        uint32_t a0 = hi ? x[2] : x[0], a1 = hi ? x[3] : x[1];
+        a0 |= __shfl_xor_sync(0xffffffffu, hi ? x[0] : x[2], 2);
+        a1 |= __shfl_xor_sync(0xffffffffu, hi ? x[1] : x[3], 2);
+        uint32_t mine = odd ? a1 : a0;
+        mine |= __shfl_xor_sync(0xffffffffu, odd ? a0 : a1, 1);
+        const int r = r0 + 8 * h;
+        if (r < n)
+          keep_bits[(static_cast<size_t>(bh) * n + r) * words + 4 * t + qd] = mine;
+      }
+    };
+
+    // Tile t: this warpgroup's turn on the tensor cores (S of tile t, then
+    // P·V of tile t-1, two commit groups), then the softmax of S while P·V
+    // still runs and the other warpgroup takes its turn. O is rescaled once
+    // P·V is done. Tile 0, which has no P·V before it, is peeled off
+    // (`with_pv` a constant): a wgmma under a run-time condition makes
+    // ptxas serialize them all (C7520).
+    auto tile = [&](int t, auto with_pv) {
+      constexpr bool kPv = decltype(with_pv)::value;
+      const int stage = t % kFwdStages;
+      mbar_wait(&full[stage], (t / kFwdStages) & 1);
+      bar_sync(kSchedBarrier + wg, 256);
+      const uint32_t k_addr = smem_u32(smem + stage * L::kFwdStage);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_rs<kFwdKeys, 0>(s, qa[kk],
+                              desc_k_major<L::kRowBytes>(k_addr + kk * 32, L::kGroup),
+                              kk);
+      wgmma_commit();
+      if constexpr (kPv) {
+        issue_pv(t - 1);
+        wgmma_commit();
+      }
+      if (wg == 0 || t + 1 < n_tiles) bar_arrive(kSchedBarrier + (wg ^ 1), 256);
+      wgmma_wait<kPv ? 1 : 0>();
+      fence_regs(s);
+
+      // the softmax and mask of a tile with keys past n (the last, when n is
+      // no multiple of 128) in their own copy: checked per element in one,
+      // they would cost every tile a select
+      float alpha[2];
+      if ((t + 1) * kFwdKeys > n)
+        softmax(t, stage, alpha, std::true_type{});
+      else
+        softmax(t, stage, alpha, std::false_type{});
+      // P·V of tile t-1 done: stage t-1 is free, O and pa may change
+      wgmma_wait<0>();
+      fence_regs(o);
+      fence_regs(pa);
+      if (kPv && lane == 0) mbar_arrive(&empty[(t - 1) % kFwdStages]);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          o[4 * j + 2 * h] *= alpha[h];
+          o[4 * j + 2 * h + 1] *= alpha[h];
+        }
+      pack_a<kFwdKeys / 16>(pa, s);
+    };
+    if (wg == 1) bar_arrive(kSchedBarrier, 256);  // warpgroup 0 goes first
+    tile(0, std::false_type{});
+    for (int t = 1; t < n_tiles; ++t) tile(t, std::true_type{});
+    wgmma_fence();
+    issue_pv(n_tiles - 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-      const float m_new = fmaxf(m_row[h], mx[h]);
-      alpha[h] = expf(m_row[h] - m_new);
-      m_row[h] = m_new;
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
     }
-    float rs[2] = {0.f, 0.f};
+    const float dscale = drop.on ? drop.scale : 1.f;
+    store_rows<D>(out + static_cast<size_t>(bh) * n * D, o, r0, n, qd,
+                  dscale / l[0], dscale / l[1]);
+    if (lse != nullptr && qd == 0) {
+      float* lh = lse + static_cast<size_t>(bh) * n;
 #pragma unroll
-    for (int j = 0; j < kBlockN / 8; ++j) {
-      s[j][0] = expf(s[j][0] - m_row[0]);
-      s[j][1] = expf(s[j][1] - m_row[0]);
-      s[j][2] = expf(s[j][2] - m_row[1]);
-      s[j][3] = expf(s[j][3] - m_row[1]);
-      rs[0] += s[j][0] + s[j][1];
-      rs[1] += s[j][2] + s[j][3];
+      for (int h = 0; h < 2; ++h)
+        if (r0 + 8 * h < n) lh[r0 + 8 * h] = (m2[h] + log2f(l[h])) * kLn2;
     }
-    l_row[0] = l_row[0] * alpha[0] + rs[0];
-    l_row[1] = l_row[1] * alpha[1] + rs[1];
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      o[j][0] *= alpha[0];
-      o[j][1] *= alpha[0];
-      o[j][2] *= alpha[1];
-      o[j][3] *= alpha[1];
-    }
-    if (drop.on) {  // the row sums above saw the unmasked probabilities
-#pragma unroll
-      for (int j = 0; j < kBlockN / 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = key0 + j * 8 + quad * 2 + (e & 1);
-          const int row = e < 2 ? ra : rb;
-          if (drop.factor(bh, row, key) == 0.f) s[j][e] = 0.f;
-        }
-      }
-    }
-
-    // O += P V: P from the S fragments (two n8 tiles = one k16 A fragment)
-#pragma unroll
-    for (int kk = 0; kk < kBlockN / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        uint32_t b[4];
-        load_b_t(b, sv[buf], kStride, kk * 16, dp * 16, lane);
-        mma_bf16(o[2 * dp], pa, b[0], b[1]);
-        mma_bf16(o[2 * dp + 1], pa, b[2], b[3]);
-      }
-    }
-    __syncthreads();  // this buffer is refilled two tiles on
-  }
-
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    l_row[h] += __shfl_xor_sync(0xffffffffu, l_row[h], 1);
-    l_row[h] += __shfl_xor_sync(0xffffffffu, l_row[h], 2);
-  }
-  const float dscale = drop.on ? drop.scale : 1.f;
-  const float inv0 = dscale / l_row[0], inv1 = dscale / l_row[1];
-  __nv_bfloat16* oh = out + head;
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    const int c = j * 8 + quad * 2;
-    if (ra < n)
-      *reinterpret_cast<__nv_bfloat162*>(oh + static_cast<size_t>(ra) * D + c) =
-          __floats2bfloat162_rn(o[j][0] * inv0, o[j][1] * inv0);
-    if (rb < n)
-      *reinterpret_cast<__nv_bfloat162*>(oh + static_cast<size_t>(rb) * D + c) =
-          __floats2bfloat162_rn(o[j][2] * inv1, o[j][3] * inv1);
-  }
-  if (lse != nullptr && quad == 0) {
-    float* lh = lse + static_cast<size_t>(bh) * n;
-    if (ra < n) lh[ra] = m_row[0] + logf(l_row[0]);
-    if (rb < n) lh[rb] = m_row[1] + logf(l_row[1]);
   }
 }
 
-// ----------------------------------------------------- bwd (0): delta = Σ dO·O
-template <typename T>
-__device__ __forceinline__ float to_f(T x);
-template <>
-__device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
+// -------------------------------------------- fp32 bwd (0): delta = Σ dO·O
 __global__ void __launch_bounds__(kThreads)
-    flash_bwd_delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
-                           float* __restrict__ delta, int rows, int d) {
+    flash_bwd_delta_f32_kernel(const float* __restrict__ out,
+                               const float* __restrict__ dout,
+                               float* __restrict__ delta, int rows, int d) {
   const int row = blockIdx.x * kWarps + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= rows) return;
   const size_t base = static_cast<size_t>(row) * d;
   float acc = 0.f;
-  for (int c = lane; c < d; c += 32)
-    acc = fmaf(to_f(dout[base + c]), to_f(out[base + c]), acc);
+  for (int c = lane; c < d; c += 32) acc = fmaf(dout[base + c], out[base + c], acc);
 #pragma unroll
   for (int off = 16; off > 0; off /= 2)
     acc += __shfl_xor_sync(0xffffffffu, acc, off);
@@ -401,291 +556,383 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ------------------------------------------------ bf16 bwd (a): dK and dV
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                               const __nv_bfloat16* __restrict__ k,
-                               const __nv_bfloat16* __restrict__ v,
-                               const __nv_bfloat16* __restrict__ dout,
+// A consumer thread owns keys kr0 = key0 + 64·wg + 16w + g and kr0 + 8 and,
+// in a 64-query stage, the queries 8j + 2q + e (j < 8): S^T element
+// 4j + 2h + e is (key kr0 + 8h, query). The producer warp writes the stage's
+// LSE·log2(e) (+inf past n), delta and, with dropout, the forward's keep
+// bits of the CTA's 128 keys beside the tiles before it starts their copies.
+template <int D, bool kDropout>
+__global__ void __launch_bounds__(kWsThreads, 1)
+    flash_bwd_dkdv_bf16_kernel(const __grid_constant__ CUtensorMap map_qs,
+                               const __grid_constant__ CUtensorMap map_q,
+                               const __grid_constant__ CUtensorMap map_do,
+                               const bf16* __restrict__ k,
+                               const bf16* __restrict__ v,
                                const float* __restrict__ lse,
                                const float* __restrict__ delta,
-                               __nv_bfloat16* __restrict__ dk,
-                               __nv_bfloat16* __restrict__ dv, int n,
-                               float scale, Dropout drop) {
-  constexpr int kStride = D + 8;
-  __shared__ __align__(16) __nv_bfloat16 sq[2][kBlockM * kStride];
-  __shared__ __align__(16) __nv_bfloat16 sdo[2][kBlockM * kStride];
-  __shared__ float slse[2][kBlockM];
-  __shared__ float sdelta[2][kBlockM];
+                               const uint32_t* __restrict__ keep_bits,
+                               bf16* __restrict__ dk, bf16* __restrict__ dv,
+                               int n, float scale, float dscale) {
+  using L = Layout<D>;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ uint64_t full[kBwdStages], empty[kBwdStages];
+  unsigned char* smem = align_1024(smem_raw);
 
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int quad = lane % 4;
-  const int g = lane / 4;
+  const int tid = threadIdx.x, wg = tid / 128, lane = tid % 32;
   const int bh = blockIdx.y;
-  const int key0 = blockIdx.x * kBlockN;
-  const size_t head = static_cast<size_t>(bh) * n * D;
-  const __nv_bfloat16* qh = q + head;
-  const __nv_bfloat16* doh = dout + head;
-  const float* lh = lse + static_cast<size_t>(bh) * n;
-  const float* dh = delta + static_cast<size_t>(bh) * n;
-  const float qscale = __bfloat162float(__float2bfloat16(scale));
-  const float dscale = drop.on ? drop.scale : 1.f;
+  const int n_tiles = (n + kBwdTile - 1) / kBwdTile;
 
-  auto stage_stats = [&](int q0, int buf) {
-    if (tid < kBlockM) {
-      const bool ok = q0 + tid < n;
-      slse[buf][tid] = ok ? lh[q0 + tid] : 0.f;
-      sdelta[buf][tid] = ok ? dh[q0 + tid] : 0.f;
+  if (tid == 0) {
+    for (int s = 0; s < kBwdStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * kConsumers);
     }
-  };
-
-  // K and V of this key tile go through the second buffers into registers
-  stage_rows<D>(sq[1], kStride, k + head, key0, n, tid);
-  stage_rows<D>(sdo[1], kStride, v + head, key0, n, tid);
-  stage_rows<D>(sq[0], kStride, qh, 0, n, tid);
-  stage_rows<D>(sdo[0], kStride, doh, 0, n, tid);
-  cp_async_commit();
-  stage_stats(0, 0);
-  cp_async_wait<0>();
-  __syncthreads();
-  uint32_t ka[D / 16][4], va[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    load_a(ka[kk], sq[1], kStride, warp * 16, kk * 16, lane);
-    load_a(va[kk], sdo[1], kStride, warp * 16, kk * 16, lane);
+    mbar_init_fence();
   }
   __syncthreads();
 
-  float dka[D / 8][4], dva[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
-  // this thread's key rows (g and g+8 of the warp's 16)
-  const int kra = key0 + warp * 16 + g, krb = kra + 8;
-
-  const int num_tiles = (n + kBlockM - 1) / kBlockM;
-  for (int t = 0; t < num_tiles; ++t) {
-    const int buf = t & 1;
-    const int q0 = t * kBlockM;
-    if (t + 1 < num_tiles) {
-      stage_rows<D>(sq[buf ^ 1], kStride, qh, q0 + kBlockM, n, tid);
-      stage_rows<D>(sdo[buf ^ 1], kStride, doh, q0 + kBlockM, n, tid);
-      cp_async_commit();
-      stage_stats(q0 + kBlockM, buf ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    // S^T = K Qs^T and dP^T = V dO^T, 16 keys x 64 queries per warp
-    float st[kBlockM / 8][4], dpt[kBlockM / 8][4];
-#pragma unroll
-    for (int j = 0; j < kBlockM / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-      for (int np = 0; np < kBlockM / 16; ++np) {
-        uint32_t b[4];
-        load_b_nt(b, sq[buf], kStride, np * 16, kk * 16, lane);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) b[e] = scale_bf16x2(b[e], qscale);
-        mma_bf16(st[2 * np], ka[kk], b[0], b[1]);
-        mma_bf16(st[2 * np + 1], ka[kk], b[2], b[3]);
-        load_b_nt(b, sdo[buf], kStride, np * 16, kk * 16, lane);
-        mma_bf16(dpt[2 * np], va[kk], b[0], b[1]);
-        mma_bf16(dpt[2 * np + 1], va[kk], b[2], b[3]);
+  if (wg == kConsumers) {
+    // ------------------------------------------------------------ producer
+    reg_dealloc<kProducerRegs>();
+    if (tid < kConsumers * 128 + 32) {
+      const int words = keep_words(n);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % kBwdStages;
+        mbar_wait(&empty[s], ((t / kBwdStages) & 1) ^ 1);
+        unsigned char* st = smem + s * L::kKvStage;
+        float* s_lse = reinterpret_cast<float*>(st + 3 * L::kBwdTileBytes);
+        float* s_del = s_lse + kBwdTile;
+        uint32_t* s_mask = reinterpret_cast<uint32_t*>(s_del + kBwdTile);
+        for (int i = lane; i < kBwdTile; i += 32) {
+          const int row = t * kBwdTile + i;
+          const bool ok = row < n;
+          const size_t at = static_cast<size_t>(bh) * n + row;
+          s_lse[i] = ok ? lse[at] * kLog2e : CUDART_INF_F;
+          s_del[i] = ok ? delta[at] : 0.f;
+          if constexpr (kDropout) {
+            const uint4 w = ok ? *reinterpret_cast<const uint4*>(
+                                     keep_bits + at * words + 4 * blockIdx.x)
+                               : make_uint4(0, 0, 0, 0);
+            s_mask[i] = w.x;
+            s_mask[kBwdTile + i] = w.y;
+            s_mask[2 * kBwdTile + i] = w.z;
+            s_mask[3 * kBwdTile + i] = w.w;
+          }
+        }
+        __syncwarp();
+        if (lane == 0) {
+          mbar_arrive_expect_tx(&full[s], 3 * L::kBwdTileBytes);
+          tma_load_3d(st, &map_qs, &full[s], 0, t * kBwdTile, bh);
+          tma_load_3d(st + L::kBwdTileBytes, &map_q, &full[s], 0, t * kBwdTile, bh);
+          tma_load_3d(st + 2 * L::kBwdTileBytes, &map_do, &full[s], 0,
+                      t * kBwdTile, bh);
+        }
       }
     }
-    // P^T, dropped P^T (kept in st) and dS^T (kept in dpt)
-#pragma unroll
-    for (int j = 0; j < kBlockM / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = j * 8 + quad * 2 + (e & 1);  // query in the tile
-        const int query = q0 + col;
-        const int key = e < 2 ? kra : krb;
-        const float p = query < n ? expf(st[j][e] - slse[buf][col]) : 0.f;
-        const float keep = drop.on ? drop.factor(bh, query, key) * dscale : 1.f;
-        st[j][e] = p * keep;
-        dpt[j][e] = p * (dpt[j][e] * keep - sdelta[buf][col]) * scale;
-      }
-    }
-    // dV += Pd^T dO and dK += dS^T Q (A operands re-packed from registers)
-#pragma unroll
-    for (int kk = 0; kk < kBlockM / 16; ++kk) {
-      uint32_t pa[4], da[4];
-      pa[0] = pack_bf16(st[2 * kk][0], st[2 * kk][1]);
-      pa[1] = pack_bf16(st[2 * kk][2], st[2 * kk][3]);
-      pa[2] = pack_bf16(st[2 * kk + 1][0], st[2 * kk + 1][1]);
-      pa[3] = pack_bf16(st[2 * kk + 1][2], st[2 * kk + 1][3]);
-      da[0] = pack_bf16(dpt[2 * kk][0], dpt[2 * kk][1]);
-      da[1] = pack_bf16(dpt[2 * kk][2], dpt[2 * kk][3]);
-      da[2] = pack_bf16(dpt[2 * kk + 1][0], dpt[2 * kk + 1][1]);
-      da[3] = pack_bf16(dpt[2 * kk + 1][2], dpt[2 * kk + 1][3]);
-#pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        uint32_t b[4];
-        load_b_t(b, sdo[buf], kStride, kk * 16, dp * 16, lane);
-        mma_bf16(dva[2 * dp], pa, b[0], b[1]);
-        mma_bf16(dva[2 * dp + 1], pa, b[2], b[3]);
-        load_b_t(b, sq[buf], kStride, kk * 16, dp * 16, lane);
-        mma_bf16(dka[2 * dp], da, b[0], b[1]);
-        mma_bf16(dka[2 * dp + 1], da, b[2], b[3]);
-      }
-    }
-    __syncthreads();  // this buffer is refilled two tiles on
-  }
+  } else {
+    // ----------------------------------------------------------- consumers
+    reg_alloc<kConsumerRegs>();
+    const int warp = (tid % 128) / 32, g = lane / 4, qd = lane % 4;
+    const int kr0 = blockIdx.x * kBwdRows + wg * 64 + warp * 16 + g;
+    const size_t head = static_cast<size_t>(bh) * n * D;
+    uint32_t ka[D / 16][4], va[D / 16][4];
+    load_a_rows<D>(ka, k + head, kr0, n, qd, 1.f);
+    load_a_rows<D>(va, v + head, kr0, n, qd, 1.f);
+    // the warp's keys in the CTA's four mask words: word kw, bits kb0 + 8h
+    const int kw = wg * 2 + warp / 2, kb0 = (warp % 2) * 16 + g;
 
+    float dka[D / 2], dva[D / 2];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    const int c = j * 8 + quad * 2;
-    if (kra < n) {
-      const size_t o = head + static_cast<size_t>(kra) * D + c;
-      *reinterpret_cast<__nv_bfloat162*>(dk + o) = __floats2bfloat162_rn(dka[j][0], dka[j][1]);
-      *reinterpret_cast<__nv_bfloat162*>(dv + o) = __floats2bfloat162_rn(dva[j][0], dva[j][1]);
-    }
-    if (krb < n) {
-      const size_t o = head + static_cast<size_t>(krb) * D + c;
-      *reinterpret_cast<__nv_bfloat162*>(dk + o) = __floats2bfloat162_rn(dka[j][2], dka[j][3]);
-      *reinterpret_cast<__nv_bfloat162*>(dv + o) = __floats2bfloat162_rn(dva[j][2], dva[j][3]);
-    }
+    for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+    float st[32], dpt[32];
+    uint32_t pa[kBwdTile / 16][4], da[kBwdTile / 16][4];
+
+    // Tile t, as in the forward: this warpgroup's turn on the tensor cores
+    // (S^T and dP^T of tile t, then dV and dK of tile t-1), then the
+    // elementwise work of tile t while the other warpgroup takes its turn.
+    auto issue_dvdk = [&](int t) {
+      const uint32_t q_addr =
+          smem_u32(smem + (t % kBwdStages) * L::kKvStage) + L::kBwdTileBytes;
+      const uint32_t do_addr = q_addr + L::kBwdTileBytes;
+#pragma unroll
+      for (int kk = 0; kk < kBwdTile / 16; ++kk)
+        wgmma_rs<D, 1>(dva, pa[kk],
+                       desc_mn_major<L::kRowBytes>(do_addr + kk * 16 * L::kRowBytes,
+                                                   L::kBwdTileBytes, L::kGroup),
+                       1);
+#pragma unroll
+      for (int kk = 0; kk < kBwdTile / 16; ++kk)
+        wgmma_rs<D, 1>(dka, da[kk],
+                       desc_mn_major<L::kRowBytes>(q_addr + kk * 16 * L::kRowBytes,
+                                                   L::kBwdTileBytes, L::kGroup),
+                       1);
+    };
+    auto tile = [&](int t, auto with_prev) {
+      const int stage = t % kBwdStages;
+      unsigned char* sb = smem + stage * L::kKvStage;
+      const uint32_t qs_addr = smem_u32(sb);
+      const uint32_t do_addr = qs_addr + 2 * L::kBwdTileBytes;
+      const float* s_lse = reinterpret_cast<const float*>(sb + 3 * L::kBwdTileBytes);
+      const float* s_del = s_lse + kBwdTile;
+      const uint32_t* s_mask =
+          reinterpret_cast<const uint32_t*>(s_del + kBwdTile) + kw * kBwdTile;
+      constexpr bool kPrev = decltype(with_prev)::value;
+      mbar_wait(&full[stage], (t / kBwdStages) & 1);
+      bar_sync(kSchedBarrier + wg, 256);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_rs<kBwdTile, 0>(st, ka[kk],
+                              desc_k_major<L::kRowBytes>(qs_addr + kk * 32, L::kGroup),
+                              kk);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_rs<kBwdTile, 0>(dpt, va[kk],
+                              desc_k_major<L::kRowBytes>(do_addr + kk * 32, L::kGroup),
+                              kk);
+      wgmma_commit();
+      if constexpr (kPrev) {
+        issue_dvdk(t - 1);
+        wgmma_commit();
+      }
+      if (wg == 0 || t + 1 < n_tiles) bar_arrive(kSchedBarrier + (wg ^ 1), 256);
+      // all of this warpgroup's products done before its elementwise work:
+      // pa and da are free while st and dpt are live (with them live too,
+      // the pass overflows its 232 registers); the other warpgroup's
+      // products keep the tensor cores busy meanwhile
+      wgmma_wait<0>();
+      fence_regs(st);
+      fence_regs(dpt);
+      fence_regs(pa);
+      fence_regs(da);
+      if (kPrev && lane == 0) mbar_arrive(&empty[(t - 1) % kBwdStages]);
+      // P^T, dropped P^T (into st) and dS^T (into dpt)
+#pragma unroll
+      for (int j = 0; j < kBwdTile / 8; ++j) {
+        const int c = 8 * j + 2 * qd;  // queries c, c + 1 of the stage
+        const float2 lq = *reinterpret_cast<const float2*>(s_lse + c);
+        const float2 dq = *reinterpret_cast<const float2*>(s_del + c);
+        const uint2 mq = *reinterpret_cast<const uint2*>(s_mask + c);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float lv = e ? lq.y : lq.x, dl = e ? dq.y : dq.x;
+          const uint32_t mw = (e ? mq.y : mq.x) >> kb0;  // bit 8h: key kr0 + 8h
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int i = 4 * j + 2 * h + e;
+            const float p = ex2(fmaf(st[i], kLog2e, -lv));
+            float kf = 1.f;
+            if constexpr (kDropout) kf = (mw & (1u << (8 * h))) != 0u ? dscale : 0.f;
+            st[i] = p * kf;
+            dpt[i] = p * (dpt[i] * kf - dl) * scale;
+          }
+        }
+      }
+      pack_a<kBwdTile / 16>(pa, st);
+      pack_a<kBwdTile / 16>(da, dpt);
+    };
+    if (wg == 1) bar_arrive(kSchedBarrier, 256);  // warpgroup 0 goes first
+    tile(0, std::false_type{});
+    for (int t = 1; t < n_tiles; ++t) tile(t, std::true_type{});
+    wgmma_fence();
+    issue_dvdk(n_tiles - 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dka);
+    fence_regs(dva);
+    store_rows<D>(dk + head, dka, kr0, n, qd, 1.f, 1.f);
+    store_rows<D>(dv + head, dva, kr0, n, qd, 1.f, 1.f);
   }
 }
 
 // ------------------------------------------------------ bf16 bwd (b): dQ
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                             const __nv_bfloat16* __restrict__ k,
-                             const __nv_bfloat16* __restrict__ v,
-                             const __nv_bfloat16* __restrict__ dout,
+// A consumer thread owns query rows r0 = row0 + 64·wg + 16w + g and r0 + 8
+// and, in a 64-key stage, the keys 8j + 2q + e: S element 4j + 2h + e is
+// (r0 + 8h, key). It runs first: before its loop it writes what the dK/dV
+// pass reads, delta = rowsum(dO ∘ O) and qs = bf16(q · bf16(scale)), from
+// the A fragments of its rows. Keys past n need no check: their rows of k
+// and v arrive as zeros, so dP is 0 there, dS finite and dS·k 0.
+template <int D, bool kDropout>
+__global__ void __launch_bounds__(kWsThreads, 1)
+    flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap map_k,
+                             const __grid_constant__ CUtensorMap map_v,
+                             const bf16* __restrict__ q,
+                             const bf16* __restrict__ dout,
+                             const bf16* __restrict__ out,
                              const float* __restrict__ lse,
-                             const float* __restrict__ delta,
-                             __nv_bfloat16* __restrict__ dq, int n,
-                             float scale, Dropout drop) {
-  constexpr int kStride = D + 8;
-  __shared__ __align__(16) __nv_bfloat16 sk[2][kBlockN * kStride];
-  __shared__ __align__(16) __nv_bfloat16 sv[2][kBlockN * kStride];
+                             float* __restrict__ delta, bf16* __restrict__ qs,
+                             const uint32_t* __restrict__ keep_bits,
+                             bf16* __restrict__ dq, int n, float scale,
+                             float dscale) {
+  using L = Layout<D>;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ uint64_t full[kBwdStages], empty[kBwdStages];
+  unsigned char* smem = align_1024(smem_raw);
 
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int quad = lane % 4;
-  const int g = lane / 4;
+  const int tid = threadIdx.x, wg = tid / 128, lane = tid % 32;
   const int bh = blockIdx.y;
-  const int row0 = blockIdx.x * kBlockM;
-  const size_t head = static_cast<size_t>(bh) * n * D;
-  const __nv_bfloat16* kh = k + head;
-  const __nv_bfloat16* vh = v + head;
-  const float qscale = __bfloat162float(__float2bfloat16(scale));
-  const float dscale = drop.on ? drop.scale : 1.f;
+  const int n_tiles = (n + kBwdTile - 1) / kBwdTile;
 
-  // Q and dO of this query tile go through the second buffers into registers
-  stage_rows<D>(sk[1], kStride, q + head, row0, n, tid);
-  stage_rows<D>(sv[1], kStride, dout + head, row0, n, tid);
-  stage_rows<D>(sk[0], kStride, kh, 0, n, tid);
-  stage_rows<D>(sv[0], kStride, vh, 0, n, tid);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  uint32_t qa[D / 16][4], doa[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    load_a(qa[kk], sk[1], kStride, warp * 16, kk * 16, lane);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) qa[kk][e] = scale_bf16x2(qa[kk][e], qscale);
-    load_a(doa[kk], sv[1], kStride, warp * 16, kk * 16, lane);
+  if (tid == 0) {
+    for (int s = 0; s < kBwdStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * kConsumers);
+    }
+    mbar_init_fence();
   }
   __syncthreads();
 
-  const int ra = row0 + warp * 16 + g, rb = ra + 8;
-  const float* lh = lse + static_cast<size_t>(bh) * n;
-  const float* dh = delta + static_cast<size_t>(bh) * n;
-  const float lse_r[2] = {ra < n ? lh[ra] : 0.f, rb < n ? lh[rb] : 0.f};
-  const float del_r[2] = {ra < n ? dh[ra] : 0.f, rb < n ? dh[rb] : 0.f};
-
-  float dqa[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) dqa[j][0] = dqa[j][1] = dqa[j][2] = dqa[j][3] = 0.f;
-
-  const int num_tiles = (n + kBlockN - 1) / kBlockN;
-  for (int t = 0; t < num_tiles; ++t) {
-    const int buf = t & 1;
-    const int key0 = t * kBlockN;
-    if (t + 1 < num_tiles) {
-      stage_rows<D>(sk[buf ^ 1], kStride, kh, key0 + kBlockN, n, tid);
-      stage_rows<D>(sv[buf ^ 1], kStride, vh, key0 + kBlockN, n, tid);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    float s[kBlockN / 8][4], dp[kBlockN / 8][4];
-#pragma unroll
-    for (int j = 0; j < kBlockN / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-      for (int np = 0; np < kBlockN / 16; ++np) {
-        uint32_t b[4];
-        load_b_nt(b, sk[buf], kStride, np * 16, kk * 16, lane);
-        mma_bf16(s[2 * np], qa[kk], b[0], b[1]);
-        mma_bf16(s[2 * np + 1], qa[kk], b[2], b[3]);
-        load_b_nt(b, sv[buf], kStride, np * 16, kk * 16, lane);
-        mma_bf16(dp[2 * np], doa[kk], b[0], b[1]);
-        mma_bf16(dp[2 * np + 1], doa[kk], b[2], b[3]);
+  if (wg == kConsumers) {
+    // ------------------------------------------------------------ producer
+    reg_dealloc<kProducerRegs>();
+    if (tid == kConsumers * 128) {
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % kBwdStages;
+        mbar_wait(&empty[s], ((t / kBwdStages) & 1) ^ 1);
+        unsigned char* st = smem + s * L::kQStage;
+        mbar_arrive_expect_tx(&full[s], L::kQStage);
+        tma_load_3d(st, &map_k, &full[s], 0, t * kBwdTile, bh);
+        tma_load_3d(st + L::kBwdTileBytes, &map_v, &full[s], 0, t * kBwdTile, bh);
       }
     }
+  } else {
+    // ----------------------------------------------------------- consumers
+    reg_alloc<kConsumerRegs>();
+    const int warp = (tid % 128) / 32, g = lane / 4, qd = lane % 4;
+    const int r0 = blockIdx.x * kBwdRows + wg * 64 + warp * 16 + g;
+    const size_t head = static_cast<size_t>(bh) * n * D;
+    uint32_t qa[D / 16][4], doa[D / 16][4];
+    load_a_rows<D>(qa, q + head, r0, n, qd,
+                   __bfloat162float(__float2bfloat16(scale)));
+    load_a_rows<D>(doa, dout + head, r0, n, qd, 1.f);
+    // delta of rows r0 and r0 + 8: the thread's D/4 columns of each (those of
+    // its A fragments), then the quad's four sums; qs from the fragments
+    float dl[2] = {0.f, 0.f};
+    {
+      uint32_t oa[D / 16][4];
+      load_a_rows<D>(oa, out + head, r0, n, qd, 1.f);
 #pragma unroll
-    for (int j = 0; j < kBlockN / 8; ++j) {
+      for (int kk = 0; kk < D / 16; ++kk)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = key0 + j * 8 + quad * 2 + (e & 1);
-        const int h = e / 2;
-        const int row = h ? rb : ra;
-        const float p = key < n ? expf(s[j][e] - lse_r[h]) : 0.f;
-        const float keep = drop.on ? drop.factor(bh, row, key) * dscale : 1.f;
-        s[j][e] = p * (dp[j][e] * keep - del_r[h]) * scale;
-      }
+        for (int i = 0; i < 4; ++i) {
+          const float2 g2 = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&doa[kk][i]));
+          const float2 o2 = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&oa[kk][i]));
+          dl[i & 1] = fmaf(g2.x, o2.x, fmaf(g2.y, o2.y, dl[i & 1]));
+          const int r = r0 + (i & 1) * 8, c = kk * 16 + (i >> 1) * 8 + 2 * qd;
+          if (r < n) *reinterpret_cast<uint32_t*>(qs + head + static_cast<size_t>(r) * D + c) = qa[kk][i];
+        }
     }
-    // dQ += dS K
+    float lv[2];
+    const uint32_t* brow[2];
+    const int words = keep_words(n);
 #pragma unroll
-    for (int kk = 0; kk < kBlockN / 16; ++kk) {
-      uint32_t da[4];
-      da[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      da[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      da[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      da[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int dpi = 0; dpi < D / 16; ++dpi) {
-        uint32_t b[4];
-        load_b_t(b, sk[buf], kStride, kk * 16, dpi * 16, lane);
-        mma_bf16(dqa[2 * dpi], da, b[0], b[1]);
-        mma_bf16(dqa[2 * dpi + 1], da, b[2], b[3]);
-      }
+    for (int h = 0; h < 2; ++h) {
+      dl[h] += __shfl_xor_sync(0xffffffffu, dl[h], 1);
+      dl[h] += __shfl_xor_sync(0xffffffffu, dl[h], 2);
+      const int r = r0 + 8 * h;
+      const size_t at = static_cast<size_t>(bh) * n + (r < n ? r : 0);
+      if (qd == 0 && r < n) delta[at] = dl[h];
+      lv[h] = lse[at] * kLog2e;
+      brow[h] = kDropout ? keep_bits + at * words : nullptr;
     }
-    __syncthreads();
-  }
 
+    float dqa[D / 2];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    const int c = j * 8 + quad * 2;
-    if (ra < n)
-      *reinterpret_cast<__nv_bfloat162*>(dq + head + static_cast<size_t>(ra) * D + c) =
-          __floats2bfloat162_rn(dqa[j][0], dqa[j][1]);
-    if (rb < n)
-      *reinterpret_cast<__nv_bfloat162*>(dq + head + static_cast<size_t>(rb) * D + c) =
-          __floats2bfloat162_rn(dqa[j][2], dqa[j][3]);
+    for (int i = 0; i < D / 2; ++i) dqa[i] = 0.f;
+    float s[32], dp[32];
+    uint32_t da[kBwdTile / 16][4];
+    // the keep bits of the next stage's 64 keys, loaded a tile ahead
+    uint2 mw_next[2];
+    if constexpr (kDropout) {
+      mw_next[0] = *reinterpret_cast<const uint2*>(brow[0]);
+      mw_next[1] = *reinterpret_cast<const uint2*>(brow[1]);
+    }
+
+    // Tile t: S and dP of tile t, then dQ of tile t-1 on the tensor cores in
+    // this warpgroup's turn (two commit groups), then dS of tile t while dQ
+    // still runs (as in the forward).
+    auto issue_dq = [&](int t) {
+      const uint32_t k_addr = smem_u32(smem + (t % kBwdStages) * L::kQStage);
+#pragma unroll
+      for (int kk = 0; kk < kBwdTile / 16; ++kk)
+        wgmma_rs<D, 1>(dqa, da[kk],
+                       desc_mn_major<L::kRowBytes>(k_addr + kk * 16 * L::kRowBytes,
+                                                   L::kBwdTileBytes, L::kGroup),
+                       1);
+    };
+    auto tile = [&](int t, auto with_prev) {
+      const int stage = t % kBwdStages;
+      const uint32_t k_addr = smem_u32(smem + stage * L::kQStage);
+      const uint32_t v_addr = k_addr + L::kBwdTileBytes;
+      uint2 mw[2];
+      if constexpr (kDropout) {  // the keep bits of this stage's 64 keys
+        mw[0] = mw_next[0];
+        mw[1] = mw_next[1];
+        if (t + 1 < n_tiles) {
+          mw_next[0] = *reinterpret_cast<const uint2*>(brow[0] + 2 * (t + 1));
+          mw_next[1] = *reinterpret_cast<const uint2*>(brow[1] + 2 * (t + 1));
+        }
+      }
+      constexpr bool kPrev = decltype(with_prev)::value;
+      mbar_wait(&full[stage], (t / kBwdStages) & 1);
+      bar_sync(kSchedBarrier + wg, 256);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_rs<kBwdTile, 0>(s, qa[kk],
+                              desc_k_major<L::kRowBytes>(k_addr + kk * 32, L::kGroup),
+                              kk);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_rs<kBwdTile, 0>(dp, doa[kk],
+                              desc_k_major<L::kRowBytes>(v_addr + kk * 32, L::kGroup),
+                              kk);
+      wgmma_commit();
+      if constexpr (kPrev) {
+        issue_dq(t - 1);
+        wgmma_commit();
+      }
+      if (wg == 0 || t + 1 < n_tiles) bar_arrive(kSchedBarrier + (wg ^ 1), 256);
+      wgmma_wait<kPrev ? 1 : 0>();
+      fence_regs(s);
+      fence_regs(dp);
+      // the thread's bits at 8(j % 4) + e of word j / 4: key 8j + 2q + e
+      uint32_t mq[2][2];
+      if constexpr (kDropout) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          mq[h][0] = mw[h].x >> (2 * qd);
+          mq[h][1] = mw[h].y >> (2 * qd);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kBwdTile / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int i = 4 * j + 2 * h + e;
+            const float p = ex2(fmaf(s[i], kLog2e, -lv[h]));
+            float kf = 1.f;
+            if constexpr (kDropout)
+              kf = (mq[h][j / 4] & (1u << (8 * (j % 4) + e))) != 0u ? dscale : 0.f;
+            s[i] = p * (dp[i] * kf - dl[h]) * scale;
+          }
+      // dQ of tile t-1 done: stage t-1 is free, da may change
+      wgmma_wait<0>();
+      fence_regs(da);
+      if (kPrev && lane == 0) mbar_arrive(&empty[(t - 1) % kBwdStages]);
+      pack_a<kBwdTile / 16>(da, s);
+    };
+    if (wg == 1) bar_arrive(kSchedBarrier, 256);  // warpgroup 0 goes first
+    tile(0, std::false_type{});
+    for (int t = 1; t < n_tiles; ++t) tile(t, std::true_type{});
+    wgmma_fence();
+    issue_dq(n_tiles - 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dqa);
+    store_rows<D>(dq + head, dqa, r0, n, qd, 1.f, 1.f);
   }
 }
 
@@ -904,23 +1151,41 @@ Dropout make_dropout(float rate, unsigned seed, unsigned thresh, int block_q) {
   return drop;
 }
 
-}  // namespace
+// The tensor map of a [bh, n, D] bf16 array in boxes of `rows` rows of one
+// head (rows past n arrive as zeros), swizzled by the row's width.
+template <int D>
+bool head_map(CUtensorMap* map, const void* base, int bh, int n, int rows) {
+  const uint64_t dims[3] = {static_cast<uint64_t>(D), static_cast<uint64_t>(n),
+                            static_cast<uint64_t>(bh)};
+  const uint32_t box[3] = {static_cast<uint32_t>(D), static_cast<uint32_t>(rows), 1};
+  const CUtensorMapSwizzle swizzle = D == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : D == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                               : CU_TENSOR_MAP_SWIZZLE_32B;
+  return make_map(map, base, 3, dims, box, swizzle);
+}
 
-// Plain C interface (bound with ctypes). Pointers to contiguous [bh, n, d]
-// tensors on the device (lse, delta: [bh, n] fp32; lse may be null in the
-// forward); `thresh` = min(rate·2^32, 2^32-1) and `seed` as in the TPU
-// kernel's mask. Each returns cudaGetLastError() after its launches, or
-// cudaErrorInvalidValue for a head dim without an instantiation.
-namespace {
+template <typename Kernel>
+int set_smem(Kernel kernel, int bytes) {
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
+}
 
 template <int D>
-void fwd_bf16(dim3 grid, cudaStream_t st, const void* q, const void* k,
-              const void* v, void* out, void* lse, int n, float scale,
-              Dropout drop) {
-  flash_fwd_bf16_kernel<D><<<grid, kThreads, 0, st>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-      static_cast<float*>(lse), n, scale, drop);
+int fwd_bf16(int bh, int n, cudaStream_t st, const void* q, const void* k,
+             const void* v, void* out, void* lse, void* keep_bits, float scale,
+             Dropout drop) {
+  CUtensorMap map_k, map_v;
+  if (!head_map<D>(&map_k, k, bh, n, kFwdKeys) ||
+      !head_map<D>(&map_v, v, bh, n, kFwdKeys))
+    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int kSmem = Layout<D>::kFwdSmem;
+  if (int err = set_smem(flash_fwd_bf16_kernel<D>, kSmem)) return err;
+  dim3 grid((n + kFwdRows - 1) / kFwdRows, bh);
+  flash_fwd_bf16_kernel<D><<<grid, kWsThreads, kSmem, st>>>(
+      map_k, map_v, static_cast<const bf16*>(q), static_cast<bf16*>(out),
+      static_cast<float*>(lse), static_cast<uint32_t*>(keep_bits), n, scale,
+      drop);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
@@ -933,24 +1198,49 @@ void fwd_f32(dim3 grid, cudaStream_t st, const void* q, const void* k,
       static_cast<float*>(lse), n, scale, drop);
 }
 
+template <int D, bool kDropout>
+int bwd_bf16_passes(int bh, int n, cudaStream_t st, const void* q, const void* k,
+                    const void* v, const void* out, const void* dout,
+                    const void* lse, void* delta, void* qs, const void* keep_bits,
+                    void* dq, void* dk, void* dv, float scale, float dscale) {
+  using L = Layout<D>;
+  CUtensorMap map_qs, map_q, map_do, map_k, map_v;
+  if (!head_map<D>(&map_qs, qs, bh, n, kBwdTile) ||
+      !head_map<D>(&map_q, q, bh, n, kBwdTile) ||
+      !head_map<D>(&map_do, dout, bh, n, kBwdTile) ||
+      !head_map<D>(&map_k, k, bh, n, kBwdTile) ||
+      !head_map<D>(&map_v, v, bh, n, kBwdTile))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (int err = set_smem(flash_bwd_dkdv_bf16_kernel<D, kDropout>, L::kKvSmem)) return err;
+  if (int err = set_smem(flash_bwd_dq_bf16_kernel<D, kDropout>, L::kQSmem)) return err;
+  const dim3 grid((n + kBwdRows - 1) / kBwdRows, bh);
+  const auto* bits = static_cast<const uint32_t*>(keep_bits);
+  // dQ first: it writes the delta and qs that the dK/dV pass reads
+  flash_bwd_dq_bf16_kernel<D, kDropout><<<grid, kWsThreads, L::kQSmem, st>>>(
+      map_k, map_v, static_cast<const bf16*>(q), static_cast<const bf16*>(dout),
+      static_cast<const bf16*>(out), static_cast<const float*>(lse),
+      static_cast<float*>(delta), static_cast<bf16*>(qs), bits,
+      static_cast<bf16*>(dq), n, scale, dscale);
+  flash_bwd_dkdv_bf16_kernel<D, kDropout><<<grid, kWsThreads, L::kKvSmem, st>>>(
+      map_qs, map_q, map_do, static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), bits, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), n, scale, dscale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// with dropout the passes that read the forward's keep bits, without it
+// the passes with no mask
 template <int D>
-void bwd_bf16(int bh, cudaStream_t st, const void* q, const void* k,
-              const void* v, const void* dout, const void* lse,
-              const float* delta, void* dq, void* dk, void* dv, int n,
-              float scale, Dropout drop) {
-  using T = __nv_bfloat16;
-  dim3 grid_k((n + kBlockN - 1) / kBlockN, bh);
-  dim3 grid_q((n + kBlockM - 1) / kBlockM, bh);
-  flash_bwd_dkdv_bf16_kernel<D><<<grid_k, kThreads, 0, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), delta, static_cast<T*>(dk),
-      static_cast<T*>(dv), n, scale, drop);
-  flash_bwd_dq_bf16_kernel<D><<<grid_q, kThreads, 0, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), delta, static_cast<T*>(dq), n, scale,
-      drop);
+int bwd_bf16(int bh, int n, cudaStream_t st, const void* q, const void* k,
+             const void* v, const void* out, const void* dout, const void* lse,
+             void* delta, void* qs, const void* keep_bits, void* dq, void* dk,
+             void* dv, float scale, Dropout drop) {
+  return drop.on
+             ? bwd_bf16_passes<D, true>(bh, n, st, q, k, v, out, dout, lse, delta,
+                                        qs, keep_bits, dq, dk, dv, scale, drop.scale)
+             : bwd_bf16_passes<D, false>(bh, n, st, q, k, v, out, dout, lse, delta,
+                                         qs, nullptr, dq, dk, dv, scale, 1.f);
 }
 
 template <int D>
@@ -973,20 +1263,27 @@ void bwd_f32(int bh, cudaStream_t st, const void* q, const void* k,
 
 }  // namespace
 
+// Plain C interface (bound with ctypes). Pointers to contiguous [bh, n, d]
+// tensors on the device (lse, delta: [bh, n] fp32; lse may be null in the
+// forward; keep_bits: [bh, n, ⌈n/128⌉·4] uint32, may be null); `thresh` =
+// min(rate·2^32, 2^32-1) and `seed` as in the TPU kernel's mask. Each returns
+// cudaGetLastError() after its launches, or cudaErrorInvalidValue for a head
+// dim without an instantiation or a tensor map that cannot be made.
 extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
-                              void* out, void* lse, int bh, int n, int d,
-                              float scale, float rate, unsigned seed,
-                              unsigned thresh, int block_q, void* stream) {
-  dim3 grid((n + kBlockM - 1) / kBlockM, bh);
+                              void* out, void* lse, void* keep_bits, int bh,
+                              int n, int d, float scale, float rate,
+                              unsigned seed, unsigned thresh, int block_q,
+                              void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Dropout drop = make_dropout(rate, seed, thresh, block_q);
+  if (keep_bits != nullptr && (lse == nullptr || !drop.on))
+    return static_cast<int>(cudaErrorInvalidValue);
   switch (d) {
-    case 16: fwd_bf16<16>(grid, st, q, k, v, out, lse, n, scale, drop); break;
-    case 32: fwd_bf16<32>(grid, st, q, k, v, out, lse, n, scale, drop); break;
-    case 64: fwd_bf16<64>(grid, st, q, k, v, out, lse, n, scale, drop); break;
+    case 16: return fwd_bf16<16>(bh, n, st, q, k, v, out, lse, keep_bits, scale, drop);
+    case 32: return fwd_bf16<32>(bh, n, st, q, k, v, out, lse, keep_bits, scale, drop);
+    case 64: return fwd_bf16<64>(bh, n, st, q, k, v, out, lse, keep_bits, scale, drop);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int flash_fwd_f32(const void* q, const void* k, const void* v,
@@ -1006,28 +1303,29 @@ extern "C" int flash_fwd_f32(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The backward: delta = rowsum(dout ∘ out), then pass (a) for dk/dv and pass
-// (b) for dq. `delta` is fp32 scratch of bh·n values.
+// The backward: pass (b) for dq, which also writes delta = rowsum(dout ∘ out)
+// and qs = q·scale, then pass (a) for dk/dv. `delta` is fp32 scratch of bh·n
+// values, `qs` bf16 scratch of q's shape; `keep_bits`, the forward's, is
+// required with dropout (rate > 0) and must be null without.
 extern "C" int flash_bwd_bf16(const void* q, const void* k, const void* v,
                               const void* out, const void* dout,
-                              const void* lse, void* delta, void* dq, void* dk,
+                              const void* lse, void* delta, void* qs,
+                              const void* keep_bits, void* dq, void* dk,
                               void* dv, int bh, int n, int d, float scale,
                               float rate, unsigned seed, unsigned thresh,
                               int block_q, void* stream) {
-  using T = __nv_bfloat16;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Dropout drop = make_dropout(rate, seed, thresh, block_q);
-  if (d != 16 && d != 32 && d != 64) return static_cast<int>(cudaErrorInvalidValue);
-  const int rows = bh * n;
-  float* del = static_cast<float*>(delta);
-  flash_bwd_delta_kernel<T><<<(rows + kWarps - 1) / kWarps, kThreads, 0, st>>>(
-      static_cast<const T*>(out), static_cast<const T*>(dout), del, rows, d);
+  if ((keep_bits != nullptr) != drop.on) return static_cast<int>(cudaErrorInvalidValue);
   switch (d) {
-    case 16: bwd_bf16<16>(bh, st, q, k, v, dout, lse, del, dq, dk, dv, n, scale, drop); break;
-    case 32: bwd_bf16<32>(bh, st, q, k, v, dout, lse, del, dq, dk, dv, n, scale, drop); break;
-    default: bwd_bf16<64>(bh, st, q, k, v, dout, lse, del, dq, dk, dv, n, scale, drop); break;
+    case 16: return bwd_bf16<16>(bh, n, st, q, k, v, out, dout, lse, delta, qs,
+                                 keep_bits, dq, dk, dv, scale, drop);
+    case 32: return bwd_bf16<32>(bh, n, st, q, k, v, out, dout, lse, delta, qs,
+                                 keep_bits, dq, dk, dv, scale, drop);
+    case 64: return bwd_bf16<64>(bh, n, st, q, k, v, out, dout, lse, delta, qs,
+                                 keep_bits, dq, dk, dv, scale, drop);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int flash_bwd_f32(const void* q, const void* k, const void* v,
@@ -1041,7 +1339,7 @@ extern "C" int flash_bwd_f32(const void* q, const void* k, const void* v,
   if (d != 8 && d != 16 && d != 32 && d != 64) return static_cast<int>(cudaErrorInvalidValue);
   const int rows = bh * n;
   float* del = static_cast<float*>(delta);
-  flash_bwd_delta_kernel<float><<<(rows + kWarps - 1) / kWarps, kThreads, 0, st>>>(
+  flash_bwd_delta_f32_kernel<<<(rows + kWarps - 1) / kWarps, kThreads, 0, st>>>(
       static_cast<const float*>(out), static_cast<const float*>(dout), del, rows, d);
   switch (d) {
     case 8: bwd_f32<8>(bh, st, q, k, v, dout, lse, del, dq, dk, dv, n, scale, drop); break;

@@ -2,11 +2,14 @@
 // barriers (mbarrier), tile copies by the Tensor Memory Accelerator (TMA),
 // warpgroup register rebalancing, shared-memory matrix descriptors and the
 // asynchronous warpgroup matrix multiply (wgmma) with the A operand in
-// registers. Thin wrappers of single PTX instructions; the kernels that use
-// them say how they fit together.
+// registers, named barriers, and the host's TMA tensor maps. Thin wrappers of
+// single PTX instructions; the kernels that use them say how they fit
+// together.
 
 #pragma once
 
+#include <cuda.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace hopper {
@@ -170,6 +173,219 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
         "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// Descriptor of an operand tile stored K-major (the K index contiguous), as
+// TMA writes a box whose rows are `kSwizzle` bytes (128, 64 or 32: 64, 32 or
+// 16 bf16 of K) with the swizzle of that width: rows of the M/N index, 8-row
+// groups `sbo` bytes apart (8 · kSwizzle when the rows are packed), the
+// tile's base aligned to 1024 bytes. A k16 step inside the row is +32 bytes
+// on the address.
+template <int kSwizzle>
+__device__ __forceinline__ uint64_t desc_k_major(uint32_t smem_addr,
+                                                 uint32_t sbo) {
+  static_assert(kSwizzle == 128 || kSwizzle == 64 || kSwizzle == 32, "swizzle");
+  constexpr uint64_t layout = kSwizzle == 128 ? 1 : kSwizzle == 64 ? 2 : 3;
+  return static_cast<uint64_t>((smem_addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (layout << 62);
+}
+
+// The MN-major descriptor of desc_mn_sw128 for a swizzle of any width: rows
+// of the K index, each `kSwizzle` bytes of the M/N index; `sbo` from one
+// group of 8 K rows to the next, `lbo` from one block of kSwizzle / 2 M/N
+// elements to the next (read only when the instruction is wider).
+template <int kSwizzle>
+__device__ __forceinline__ uint64_t desc_mn_major(uint32_t smem_addr,
+                                                  uint32_t lbo, uint32_t sbo) {
+  static_assert(kSwizzle == 128 || kSwizzle == 64 || kSwizzle == 32, "swizzle");
+  constexpr uint64_t layout = kSwizzle == 128 ? 1 : kSwizzle == 64 ? 2 : 3;
+  return static_cast<uint64_t>((smem_addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (layout << 62);
+}
+
+// d[64 x N] = a[64 x 16] · b[16 x N] (+ d where `accumulate` is nonzero), N
+// in {16, 32, 64, 128}: a in registers as for wgmma_m64n128k16_rs, b in
+// shared memory through its descriptor, K-major (TransB = 0) or MN-major
+// (TransB = 1). Thread (warp w, lane 4g + q) holds d[4j + 2h + e] =
+// D[16w + g + 8h][8j + 2q + e], j < N / 8.
+template <int N, int TransB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc_b, int accumulate) {
+  static_assert(N == 16 || N == 32 || N == 64 || N == 128, "wgmma width");
+  if constexpr (N == 16) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p, 1, 1, %14;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+          "r"(accumulate), "n"(TransB));
+  }
+  if constexpr (N == 32) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+          "r"(accumulate), "n"(TransB));
+  }
+  if constexpr (N == 64) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+          "r"(accumulate), "n"(TransB));
+  }
+  if constexpr (N == 128) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+          "r"(accumulate), "n"(TransB));
+  }
+}
+
+// Tells the compiler that wgmma may read or write these registers here: an
+// accumulator read after a wait, or written before an issue, stays on its
+// side of the wait or the issue (the asm of wgmma names its registers only
+// where it is issued).
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int K16>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[K16][4]) {
+#pragma unroll
+  for (int k = 0; k < K16; ++k)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(r[k][i])::"memory");
+}
+
+// --------------------------------------------------------- named barriers
+// bar.sync waits until `count` threads (a multiple of 32) have reached
+// barrier `id` (1-15; 0 is __syncthreads), counting those that only arrive.
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// ------------------------------------------------ TMA tensor maps (host)
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime at first use
+// (the libraries do not link libcuda).
+
+using EncodeTiledFn = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled_fn() {
+  static EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult status;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                &status) != cudaSuccess ||
+        status != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<EncodeTiledFn>(p);
+  }();
+  return fn;
+}
+
+// The tensor map of a contiguous bf16 array of `rank` (at most 3)
+// dimensions, `dims` innermost first, copied in boxes of `box` elements; a
+// part of a box outside the array is filled with zeros. The driver encodes
+// it only with the device's context current on the calling thread, which
+// the runtime makes so at the thread's first call that needs a context: on
+// a thread that has made none (autograd's worker thread, when a kernel's
+// backward is the first work of a backward pass) the encoding failed, so
+// the context is bound first.
+inline bool make_map(CUtensorMap* map, const void* base, int rank,
+                     const uint64_t* dims, const uint32_t* box,
+                     CUtensorMapSwizzle swizzle) {
+  EncodeTiledFn encode = encode_tiled_fn();
+  int dev = 0;
+  if (encode == nullptr || rank > 3 || cudaGetDevice(&dev) != cudaSuccess ||
+      cudaSetDevice(dev) != cudaSuccess || cudaFree(nullptr) != cudaSuccess)
+    return false;
+  cuuint64_t gdim[3], gstride[2];
+  cuuint32_t bdim[3], estride[3];
+  uint64_t pitch = 2;  // sizeof(bf16)
+  for (int i = 0; i < rank; ++i) {
+    gdim[i] = dims[i];
+    bdim[i] = box[i];
+    estride[i] = 1;
+    pitch *= dims[i];
+    if (i + 1 < rank) gstride[i] = pitch;
+  }
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+                const_cast<void*>(base), gdim, gstride, bdim, estride,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace hopper

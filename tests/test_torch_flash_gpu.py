@@ -18,8 +18,8 @@ import pytest
 import torch
 
 from manigaussian_tpu_torch.ops.flash_attention import (
-    flash_self_attention, flash_self_attention_backward,
-    flash_self_attention_reference)
+    dropout_keep_bits, flash_attention_forward, flash_self_attention,
+    flash_self_attention_backward, flash_self_attention_reference)
 
 
 @pytest.mark.gpu
@@ -88,3 +88,45 @@ def test_cuda_backward_and_dropout_match_plain_version(dtype, n, d, rate):
         b = b.float().cpu().numpy()
         np.testing.assert_allclose(a.float().cpu().numpy(), b, rtol=0,
                                    atol=gtol * max(1.0, float(np.abs(b).max())))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,d,rate", [
+    (2048, 64, 0.0), (2048, 64, 0.1), (256, 64, 0.1), (512, 32, 0.0),
+    (512, 32, 0.1), (100, 16, 0.0), (100, 16, 0.1), (100, 64, 0.1),
+])
+def test_bf16_kernels_with_and_without_lse(n, d, rate):
+    """The bf16 forward without the LSE (act's call) and with it and the
+    keep bits (training's) against the plain version; the bits equal
+    `dropout_keep_bits`; the backward bitwise repeatable, and with dropout
+    refused without the bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; runs on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(5)
+    q, k, v, g = (torch.from_numpy(rng.standard_normal((1, 8, n, d)).astype(
+        np.float32)).to("cuda", torch.bfloat16) for _ in range(4))
+    bq = n if n <= 256 else 256
+    seed = 99
+    ref = flash_self_attention_reference(q, k, v, rate, seed, bq).float().cpu()
+    out, lse, bits = flash_attention_forward(q, k, v, rate, seed, bq)
+    assert lse is None and bits is None
+    out_t, lse, bits = flash_attention_forward(q, k, v, rate, seed, bq,
+                                               with_lse=True)
+    torch.cuda.synchronize()
+    for o in (out, out_t):
+        np.testing.assert_allclose(o.float().cpu().numpy(), ref.numpy(),
+                                   atol=2e-2, rtol=2e-2)
+    assert (bits is not None) == (rate > 0)
+    if bits is not None:
+        assert torch.equal(bits.cpu(), dropout_keep_bits(seed, rate, 8, n, bq))
+    runs = [flash_self_attention_backward(q, k, v, out_t, g, lse, rate,
+                                          seed, bq, keep_bits=bits)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    if bits is not None:
+        with pytest.raises(ValueError, match="keep_bits"):
+            flash_self_attention_backward(q, k, v, out_t, g, lse, rate,
+                                          seed, bq)
