@@ -16,8 +16,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                    repeatable; in bf16 with dropout from those bits), with
                    ptxas's registers and spill of its three wgmma kernels;
                    the tile blend forward and backward on the
-                   tiles of a real frame (16,384 random Gaussians in a 128²
-                   view, binned by the port's rasterizer); `golden`: the
+                   tiles of real frames (16,384 random Gaussians in a 128²
+                   view, binned by the port's rasterizer; batch 2; the micro
+                   config's K 512 / chunk 32; empty tiles; 65,536
+                   Gaussians), each bitwise repeatable; `golden`: the
                    JAX package's pinned frames (tests/goldens/*.npz, read with
                    numpy) rendered through the kernel route; `conv`: the 3³
                    conv forward, dx and dW (workspace and resident scheme, each
@@ -28,9 +30,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                    dropout, SDPA beside each at the same dropout rate), its
                    plain version and the PyTorch call that computes the same
                    function (a yardstick only; the port never calls it); the
-                   flash kernels and SDPA on the device reading (the summed
-                   durations of their device work under torch.profiler), the
-                   host loop's events beside it;
+                   flash kernels, SDPA and the blend kernels on the device
+                   reading (the summed durations of their device work under
+                   torch.profiler), the host loop's events beside it;
   3. small       — references on small inputs, the card against the CPU (the
                    plain versions, which tests/test_torch_*.py hold to the JAX
                    package): voxelize on cell boundaries, the micro config's
@@ -74,6 +76,8 @@ last, the device line.
 `python3 chip_smoke.py --flash-times` builds the kernels and prints only the
 flash kernels' times (`flash_times`, through the public entry point): run
 from the root of two checkouts in turn, it times both with one yardstick.
+`--blend-times` does the same for the tile blend pair (`blend_times`,
+through `blend_tiles` and autograd).
 
 Nothing of JAX is imported. Scratch files go under build/chip_smoke/ in the
 checkout. With no CUDA device, or without the package beside it, the script
@@ -111,12 +115,37 @@ PEAK_INT32 = 132 * 64 * 1.98e9
 # a shift and a xor, a multiply, the xor with the folded threshold and the
 # compare: five integer-pipe operations and two multiplies
 DROPOUT_INT_OPS = 7
-# the blend's work per (splat, pixel) pair: the forward's exp and log1p,
-# ≈ 20 fp32 operations (power, alpha, gates, weight, 6 accumulators); the
-# backward replays the forward twice and adds the suffix-sum gradient and
-# its 13 per-splat sums (≈ 60 fp32 operations)
-BLEND_SFU = {"fwd": 2, "bwd": 4}
-BLEND_FLOPS = {"fwd": 20, "bwd": 60}
+# The blend's work, counted from what the function needs on these inputs
+# (`blend_work`). Special-function units: the active pairs (a > 0, before
+# the pixel's latch) × one exp in the forward, one exp and one reciprocal in
+# the backward. fp32 pipes: the boxed pairs — those inside their splat's
+# conservative pixel box (ops/blend.py `splat_box`) and no later than their
+# pixel's latch; a pair outside the box is skipped at a cost per splat, not
+# per pair — × the fp32 instructions a pair needs, an FMA counting one:
+# forward 15 (the power from the six coefficients with the x part shared:
+# 2; alpha and its clamp 2; the two skip tests 2; T·(1 − a) 1; the latch
+# test 1; the weight 1; 6 accumulators), backward 33 (the pair, T and the
+# latch as in the forward: 8; the cotangent gcolor·rgb + glang·feat 6; the
+# weight, the prefix and the suffix 4; dα 3; its gates 2; d(power) 1; three
+# monomial sums, the x part shared, 3; d(opacity) 1; d(rgb) and d(features)
+# 6). Per live slot below the walk end, for loading and boxing it: 90 fp32
+# instructions (tile-local position 2; the six power coefficients 15 and
+# their log2 e scaling 6; the box: the definiteness test 7, the rounding
+# slack 15, τ 9, two half extents 22, the clamped bounds and the empty test
+# 14) and 5 SFU operations (a log, two reciprocals, two square roots); the
+# backward adds 60 fp32 for the warps' sums and the closed forms.
+BLEND_SFU = {"fwd": 1, "bwd": 2}
+BLEND_FP32 = {"fwd": 15, "bwd": 33}
+BLEND_SLOT_SFU = {"fwd": 5, "bwd": 5}
+BLEND_SLOT_FP32 = {"fwd": 90, "bwd": 150}
+# fp32 instructions a second: 128 lanes a clock on each of the 132 SMs (32
+# in each of its 4 partitions, Hopper white paper) at 1.98 GHz
+PEAK_FP32_INSTR = 132 * 128 * 1.98e9
+# The earlier count of the bound, kept beside this one so that factors
+# compare across versions of the kernels: every slot up to the walk end ×
+# 256 pixels, 2 / 4 SFU operations and 20 / 60 fp32 FLOPs (at 67 TFLOP/s)
+# a pair, the bytes without the saved state
+BLEND_OLD = {"fwd": (2, 20), "bwd": (4, 60)}
 
 # The kernel route and the plain route differ only in where bf16 rounds
 # inside attention (unnormalized vs normalized probabilities, summation
@@ -458,27 +487,118 @@ def random_frame(n: int = 16384, hw: int = 128, seed: int = 0):
     return counts, origins, attrs, livet, cfg, int(ov_s), int(ov_g)
 
 
-def phase_blend() -> dict:
-    """The blend forward and backward against the plain version on a real
-    frame's tiles (and ragged capacities); the golden frames; the times."""
-    import numpy as np
+def blend_work(counts, origins, attrs, livet, chunk) -> dict:
+    """What the blend of a frame's tiles needs: slot pairs up to each tile's
+    walk end (the earlier count), live slots and pairs below it, boxed pairs
+    (inside the splat's `splat_box`, no later than the pixel's latch) and
+    active pairs (a > 0, before the pixel's latch), from the plain version's
+    arithmetic (the power from the tile-local monomials, T the running
+    product)."""
     import torch
-    from manigaussian_tpu_torch.ops.blend import (blend_backward, blend_forward,
+    from manigaussian_tpu_torch.ops.blend import (ALPHA_MAX, ALPHA_MIN, T_EPS,
+                                                  _pixel_monomials,
+                                                  _splat_coeffs, splat_box)
+    t, _, k = attrs.shape
+    n_end = torch.clamp((counts[:, 0].clamp(min=0) + chunk - 1) // chunk * chunk,
+                        max=k)
+    live = ((torch.arange(k, device=attrs.device)[None] < n_end[:, None])
+            & (livet[:, 0] > 0.5))
+    mono = _pixel_monomials(16, attrs.device)
+    px, py = (mono[None, :, c:c + 1] for c in (1, 2))          # [1, P, 1]
+    active = boxed = 0
+    for t0 in range(0, t, 16):
+        sl = slice(t0, t0 + 16)
+        a_t, o_t = attrs[sl], origins[sl]
+        xm, ym = a_t[:, 0] - o_t[:, 0:1], a_t[:, 1] - o_t[:, 1:2]
+        coeff = _splat_coeffs(xm, ym, a_t[:, 2], a_t[:, 3], a_t[:, 4])
+        power = torch.matmul(mono, coeff)                       # [16, P, K]
+        alpha = torch.clamp(a_t[:, 5:6] * torch.exp(torch.clamp(power, max=0.0)),
+                            max=ALPHA_MAX)
+        on = (power <= 0) & (alpha >= ALPHA_MIN) & live[sl, None, :]
+        a = torch.where(on, alpha, torch.zeros_like(alpha))
+        t_incl = torch.cumprod(1.0 - a, dim=2)
+        active += int(((a > 0) & (t_incl >= T_EPS)).sum())
+        t_excl = torch.cat([torch.ones_like(t_incl[:, :, :1]), t_incl[:, :, :-1]], 2)
+        x0, x1, y0, y1 = (b[:, None, :] for b in splat_box(
+            xm, ym, a_t[:, 2], a_t[:, 3], a_t[:, 4], a_t[:, 5]))
+        inside = (px >= x0) & (px <= x1) & (py >= y0) & (py <= y1)
+        boxed += int((inside & live[sl, None, :] & (t_excl >= T_EPS)).sum())
+    return {"slot_pairs": float(n_end.sum()) * 256,
+            "live_slots": float(live.sum()),
+            "live_pairs": float(live.sum()) * 256, "boxed_pairs": float(boxed),
+            "active_pairs": float(active)}
+
+
+def blend_bound(kind: str, work: dict, nbytes: float, old_bytes: float) -> dict:
+    """The blend kernel's bound on `work`, its parts, and the earlier
+    count's bound beside it (`BLEND_OLD`). `fp32_if_every_live_pair_ms`, a
+    diagnostic outside the bound, is the fp32 term had every live pair below
+    the walk end to be evaluated."""
+    t_sfu = (work["active_pairs"] * BLEND_SFU[kind]
+             + work["live_slots"] * BLEND_SLOT_SFU[kind]) / PEAK_SFU
+    t_fp = (work["boxed_pairs"] * BLEND_FP32[kind]
+            + work["live_slots"] * BLEND_SLOT_FP32[kind]) / PEAK_FP32_INSTR
+    t_live = work["live_pairs"] * BLEND_FP32[kind] / PEAK_FP32_INSTR
+    t_bytes = nbytes / PEAK_BYTES
+    s_old, f_old = BLEND_OLD[kind]
+    old = max(work["slot_pairs"] * s_old / PEAK_SFU,
+              work["slot_pairs"] * f_old / PEAK_FLOPS["float32"],
+              old_bytes / PEAK_BYTES)
+    return {"bound_ms": max(t_sfu, t_fp, t_bytes) * 1e3,
+            "bound_by": "bytes" if t_bytes >= max(t_sfu, t_fp) else "operations",
+            "bound_parts_ms": {"sfu": t_sfu * 1e3, "fp32": t_fp * 1e3,
+                               "bytes": t_bytes * 1e3},
+            "fp32_if_every_live_pair_ms": t_live * 1e3,
+            "old_bound_ms": old * 1e3}
+
+
+def blend_cases():
+    """The frames of the blend checks, each (name, (counts, origins, attrs,
+    livet), chunk, gaussians): the training frame (16,384 random Gaussians
+    at 128², K 2048); batch 2 (two such frames, T = 128); the micro config's
+    K 512 / chunk 32 (the front-most 512 slots of a frame); a 64² frame of
+    2,048 Gaussians at K 256 with two tiles emptied (count 0); the 65,536
+    frame of the root bench's workload (full lists and overflow)."""
+    import torch
+    f0 = random_frame(16384, 128, 0)[:4]
+    f1 = random_frame(16384, 128, 3)[:4]
+    micro = [x.contiguous() for x in random_frame(16384, 128, 1)[:4]]
+    micro[2] = micro[2][:, :, :512].contiguous()
+    micro[3] = micro[3][:, :, :512].contiguous()
+    small = list(random_frame(2048, 64, 2)[:4])
+    small[2], small[3] = (x[:, :, :256].contiguous() for x in small[2:])
+    small[0] = small[0].clone()
+    small[0][[0, 5]] = 0
+    small[3] = small[3].clone()
+    small[3][[0, 5]] = 0
+    return [("train_16384", f0, 256, 16384),
+            ("batch2_16384", tuple(torch.cat([a, b]) for a, b in zip(f0, f1)), 256,
+             2 * 16384),
+            ("micro_k512_chunk32", tuple(micro), 32, 16384),
+            ("count0_64px_k256", tuple(small), 256, 2048),
+            ("frame_65536", random_frame(65536, 128, 4)[:4], 256, 65536)]
+
+
+def phase_blend() -> dict:
+    """The blend forward and backward against the plain version (through
+    `blend_tiles` and autograd) on every frame of `blend_cases`, each kernel
+    bitwise repeatable; the backward with one output unused; the golden
+    frames; then the times at the training and the 65,536 frame, on the
+    device reading with the host loop's beside it."""
+    import torch
+    from manigaussian_tpu_torch.ops.blend import (KERNEL_SEGMENTS,
+                                                  blend_backward, blend_forward,
                                                   blend_tiles,
-                                                  blend_tiles_reference)
+                                                  blend_tiles_reference,
+                                                  segment_bounds, walk_end)
 
     gen = torch.Generator(device="cuda").manual_seed(1)
-    errs = {}
-    for seed, hw, cap in ((0, 128, 2048), (1, 128, 512), (2, 64, 256)):
-        counts, origins, attrs, livet, cfg, ov_s, ov_g = random_frame(
-            16384 if hw == 128 else 2048, hw, seed)
-        if cap != attrs.shape[2]:   # a smaller capacity: the front-most splats
-            attrs = attrs[:, :, :cap].contiguous()
-            livet = livet[:, :, :cap].contiguous()
-        chunk = min(256, cap)
-        t = attrs.shape[0]
-        gs = [torch.randn(t, c, 256, generator=gen, device="cuda")
-              for c in (3, 3, 1)]
+    errs, frames = {}, {}
+    rule = ("outputs atol 1e-4 rtol 1e-3 ≤0.5 % outside; dattrs atol 2e-4 "
+            "rtol 1e-3 ≤2 % outside (the JAX golden tests' rules)")
+    for name, (counts, origins, attrs, livet), chunk, n_gauss in blend_cases():
+        t, _, k = attrs.shape
+        gs = [torch.randn(t, c, 256, generator=gen, device="cuda") for c in (3, 3, 1)]
         a1 = attrs.clone().requires_grad_()
         out = blend_tiles(counts, origins, a1, livet, 3, 16, chunk)
         sum((o * g).sum() for o, g in zip(out, gs)).backward()
@@ -489,67 +609,129 @@ def phase_blend() -> dict:
         fwd = [mostly_close(o.detach().cpu(), r.detach().cpu(), 1e-4, 1e-3)
                for o, r in zip(out, ref)]
         bwd = mostly_close(a1.grad.cpu(), a2.grad.cpu(), 2e-4, 1e-3, 0.02)
-        ok = all(x[0] for x in fwd) and bwd[0]
-        log("kernel_check", kernel="blend_tiles", tiles=t, capacity=cap,
-            chunk=chunk, gaussians=16384 if hw == 128 else 2048, image=hw,
-            splats_binned=int(counts.sum()), overflow_splats=ov_s,
-            overflow_gaussians=ov_g,
+        runs = [blend_forward(counts, origins, attrs, livet, 3, 16, chunk)
+                for _ in range(2)]
+        fwd_rep = all(torch.equal(x, y) for x, y in zip(*runs))
+        color, lang, _, state = runs[0]
+        grads = [blend_backward(counts, origins, attrs, livet, color, lang, state,
+                                *gs, 3, 16, chunk) for _ in range(2)]
+        bwd_rep = torch.equal(*grads)
+        ends = [walk_end(int(c), k, chunk) for c in counts[:, 0]]
+        seg_len = [segment_bounds(e, KERNEL_SEGMENTS)[0][1] for e in ends]
+        extra = {}
+        if name == "train_16384":
+            # color and log T in the loss, the features unused (a None
+            # cotangent, zeros in the Function)
+            x1 = attrs.clone().requires_grad_()
+            c1, _, l1 = blend_tiles(counts, origins, x1, livet, 3, 16, chunk)
+            ((c1 * gs[0]).sum() + (l1 * gs[2]).sum()).backward()
+            x2 = attrs.clone().requires_grad_()
+            c2, _, l2 = blend_tiles_reference(counts, origins, x2, livet, 3, 16, chunk)
+            ((c2 * gs[0]).sum() + (l2 * gs[2]).sum()).backward()
+            unused = mostly_close(x1.grad.cpu(), x2.grad.cpu(), 2e-4, 1e-3, 0.02)
+            extra["unused_output_bwd_frac_outside_max_diff"] = unused[1:]
+            extra["unused_output_ok"] = unused[0]
+        ok = (all(x[0] for x in fwd) and bwd[0] and fwd_rep and bwd_rep
+              and extra.get("unused_output_ok", True))
+        log("kernel_check", kernel="blend_tiles", frame=name, tiles=t, capacity=k,
+            chunk=chunk, gaussians=n_gauss, splats_binned=int(counts.clamp(min=0).sum()),
+            tiles_count_0=int((counts[:, 0] <= 0).sum()),
+            tiles_walk_end_not_a_multiple_of_segment=sum(
+                1 for e, sl in zip(ends, seg_len) if sl and e % sl),
             fwd_frac_outside_max_diff=[x[1:] for x in fwd],
-            bwd_frac_outside_max_diff=bwd[1:],
-            rule="outputs atol 1e-4 rtol 1e-3 ≤0.5 % outside; dattrs atol "
-                 "2e-4 rtol 1e-3 ≤2 % outside (the JAX golden tests' rules)",
-            ok=ok)
+            bwd_frac_outside_max_diff=bwd[1:], fwd_bitwise_repeatable=fwd_rep,
+            bwd_bitwise_repeatable=bwd_rep, rule=rule, **extra, ok=ok)
         if not ok:
-            raise AssertionError(f"blend kernels disagree (seed {seed}): "
-                                 f"fwd {fwd} bwd {bwd}")
-        if seed == 0:
+            raise AssertionError(f"blend kernels disagree ({name}): fwd {fwd} "
+                                 f"bwd {bwd} repeatable {fwd_rep} {bwd_rep} {extra}")
+        if name == "train_16384":
             errs = {"fwd": max(x[2] for x in fwd), "bwd": bwd[2]}
-            main = (counts, origins, attrs, livet, gs, chunk)
+        if name in ("train_16384", "frame_65536"):
+            frames[name] = (counts, origins, attrs, livet, gs, chunk, n_gauss)
     phase_golden()
 
-    counts, origins, attrs, livet, gs, chunk = main
-    t, c, k = attrs.shape
-    color, lang, logtf = blend_forward(counts, origins, attrs, livet, 3, 16, chunk)
-    n_end = torch.clamp((counts[:, 0] + chunk - 1) // chunk * chunk, max=k)
-    pairs = float(n_end.sum()) * 256
     records = {}
-    for kind in ("fwd", "bwd"):
-        if kind == "fwd":
-            fns = {"ms": lambda: blend_forward(counts, origins, attrs, livet, 3, 16, chunk),
-                   "plain_ms": lambda: blend_tiles_reference(
-                       counts, origins, attrs, livet, 3, 16, chunk)}
-            nbytes = 4.0 * (attrs.numel() + livet.numel() + 3 * t) \
-                + 4.0 * t * 256 * 7
-        else:
-            ar = attrs.clone().requires_grad_()
-            rout = blend_tiles_reference(counts, origins, ar, livet, 3, 16, chunk)
-            fns = {"ms": lambda: blend_backward(counts, origins, attrs, livet,
-                                                *gs, 3, 16, chunk),
-                   "plain_ms": lambda: torch.autograd.grad(
-                       rout, ar, gs, retain_graph=True)}
-            nbytes = 4.0 * (2 * attrs.numel() + livet.numel() + 3 * t) \
-                + 4.0 * t * 256 * 7
-        times = {key: cuda_ms(fn, iters=10) for key, fn in fns.items()}
-        t_sfu = pairs * BLEND_SFU[kind] / PEAK_SFU
-        t_fp = pairs * BLEND_FLOPS[kind] / PEAK_FLOPS["float32"]
-        t_bytes = nbytes / PEAK_BYTES
-        bound_ms = max(t_sfu, t_fp, t_bytes) * 1e3
-        bound_by = "bytes" if t_bytes >= max(t_sfu, t_fp) else "operations"
-        name = f"blend_{kind}"
-        records[name] = {
-            "name": name, "route": "cuda",
-            "source": "manigaussian_tpu_torch/csrc/blend.cu",
-            "replaces": ("manigaussian_tpu/ops/pallas_blend.py:317" if kind == "fwd"
-                         else "manigaussian_tpu/ops/pallas_blend.py:339"),
-            "launches": None, "max_abs_err": errs[kind], **times,
-            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
-        log("kernel_time", kernel=name, tiles=t, capacity=k, chunk=chunk,
-            splat_pixel_pairs=pairs, bytes=nbytes, **times, bound_ms=bound_ms,
-            bound_by=bound_by, bound_parts_ms={"sfu": t_sfu * 1e3,
-                                               "fp32": t_fp * 1e3,
-                                               "bytes": t_bytes * 1e3},
-            library_ms=None)
+    for name, (counts, origins, attrs, livet, gs, chunk, n_gauss) in frames.items():
+        t, c, k = attrs.shape
+        work = blend_work(counts, origins, attrs, livet, chunk)
+        color, lang, logtf, state = blend_forward(counts, origins, attrs, livet,
+                                                  3, 16, chunk)
+        ar = attrs.clone().requires_grad_()
+        rout = blend_tiles_reference(counts, origins, ar, livet, 3, 16, chunk)
+        inputs = 4.0 * (attrs.numel() + livet.numel() + 3 * t)
+        outputs = 4.0 * t * 256 * 7
+        fns = {
+            "fwd": (lambda: blend_forward(counts, origins, attrs, livet, 3, 16, chunk),
+                lambda: blend_tiles_reference(counts, origins, attrs, livet, 3, 16, chunk),
+                inputs + outputs + 4.0 * state.numel(), inputs + outputs),
+            "bwd": (lambda: blend_backward(
+                counts, origins, attrs, livet, color, lang, state, *gs, 3, 16,
+                chunk),
+                lambda: torch.autograd.grad(rout, ar, gs, retain_graph=True),
+                inputs + outputs + 4.0 * (state.numel() + attrs.numel()),
+                inputs + outputs + 4.0 * attrs.numel()),
+        }
+        for kind, (fn, plain, nbytes, old_bytes) in fns.items():
+            kernels = {}
+            dev = device_ms(fn, iters=20, warmup=2, by_kernel=kernels)
+            times = {"ms": dev, "host_loop_ms": cuda_ms(fn, iters=20),
+                     "plain_ms": device_ms(plain, iters=3, warmup=1),
+                     "plain_host_loop_ms": cuda_ms(plain, iters=3, warmup=1)}
+            bnd = blend_bound(kind, work, nbytes, old_bytes)
+            rec = {**times, "library_ms": None, **bnd,
+                   "factor_vs_bound": dev / bnd["bound_ms"],
+                   "factor_vs_old_bound": dev / bnd["old_bound_ms"]}
+            log("kernel_time", kernel=f"blend_{kind}", frame=name, tiles=t,
+                capacity=k, chunk=chunk, gaussians=n_gauss,
+                segments=KERNEL_SEGMENTS, **work, bytes=nbytes,
+                old_bytes=old_bytes, kernels=kernels, **rec)
+            if name == "train_16384":
+                records[f"blend_{kind}"] = {
+                    "name": f"blend_{kind}", "route": "cuda",
+                    "source": "manigaussian_tpu_torch/csrc/blend.cu",
+                    "replaces": ("manigaussian_tpu/ops/pallas_blend.py:317"
+                                 if kind == "fwd" else
+                                 "manigaussian_tpu/ops/pallas_blend.py:339"),
+                    "launches": None, "max_abs_err": errs[kind], **rec}
+            else:
+                records[f"blend_{kind}"][name] = {**rec, **work}
     return records
+
+
+def blend_times() -> dict:
+    """The blend pair's times through `blend_tiles` and autograd only (the
+    public path, the same in older checkouts), at the training frame (16,384
+    random Gaussians at 128², K 2048) and the 65,536 frame: the forward on
+    inputs that need the gradient, as training calls it, and the backward,
+    on the device reading with the host loop's beside it; and the device
+    memory one forward and backward add at their peak over what their
+    inputs hold (the residuals the forward saves among it)."""
+    import torch
+    from manigaussian_tpu_torch.ops.blend import blend_tiles
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    times = {}
+    for n in (16384, 65536):
+        counts, origins, attrs, livet = random_frame(n, 128, 0)[:4]
+        gs = [torch.randn(attrs.shape[0], c, 256, generator=gen, device="cuda")
+              for c in (3, 3, 1)]
+        ag = attrs.clone().requires_grad_()
+        fwd = lambda: blend_tiles(counts, origins, ag, livet, 3, 16, 256)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        torch.autograd.grad(fwd(), ag, gs)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        outs = fwd()
+        bwd = lambda: torch.autograd.grad(outs, ag, gs, retain_graph=True)
+        times[f"gaussians_{n}"] = {
+            kind: {"device": device_ms(fn, iters=20, warmup=2),
+                   "host_loop": cuda_ms(fn, iters=20, warmup=2)}
+            for kind, fn in (("fwd", fwd), ("bwd", bwd))}
+        times[f"gaussians_{n}"]["peak_bytes_over_inputs"] = peak
+    log("blend_times", image=[128, 128], capacity=2048, chunk=256, ms=times)
+    return times
 
 
 def phase_golden() -> None:
@@ -1011,6 +1193,8 @@ def phase_profile(step, label: str, calls: int = 3) -> dict:
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / calls
     flash_ms = sum(e.self_device_time_total for e in kernels
                    if "flash_" in e.key) / 1e3 / calls
+    blend_ms = sum(e.self_device_time_total for e in kernels
+                   if "blend_" in e.key) / 1e3 / calls
     # device time of the kernels that start inside each range's device span;
     # autograd launches the backward's kernels from its own thread, outside
     # the "update/backward" range, so the backward's share is the rest
@@ -1035,6 +1219,7 @@ def phase_profile(step, label: str, calls: int = 3) -> dict:
                device_busy_share=device_ms / wall_ms if wall_ms else None,
                kernels_launched_per_call=sum(e.count for e in kernels) / calls,
                flash_kernel_ms_per_call=flash_ms,
+               blend_kernel_ms_per_call=blend_ms,
                top_kernels_ms_count=rows(kernels, "self_device_time_total"),
                top_aten_ops_device_ms_count=rows(ops, "device_time_total"))
     log("profile", **out)
@@ -1394,9 +1579,9 @@ def phase_train_routes(demos: str, label: str, variant: str, overrides,
 
 
 def main(argv) -> int:
-    if argv not in ([], ["--flash-times"]):
-        print(f"chip_smoke: unknown arguments {argv}; takes none, or "
-              "--flash-times", file=sys.stderr)
+    if argv not in ([], ["--flash-times"], ["--blend-times"]):
+        print(f"chip_smoke: unknown arguments {argv}; takes none, "
+              "--flash-times or --blend-times", file=sys.stderr)
         return 2
     try:
         import torch
@@ -1435,6 +1620,11 @@ def main(argv) -> int:
         # call (run this file from the root of each in turn)
         phase_build()
         flash_times()
+        return 0
+    if argv == ["--blend-times"]:
+        # the blend pair's times alone, for the same kind of A/B
+        phase_build()
+        blend_times()
         return 0
     t_start = time.time()
     phase_build()

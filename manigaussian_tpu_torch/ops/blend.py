@@ -5,11 +5,18 @@ Counterpart of `manigaussian_tpu/ops/pallas_blend.py`. The kernels
 (`csrc/blend.cu`) replace its TPU kernels `_fwd_kernel` (through
 `_blend_fwd`) and `_bwd_kernel` (through `_blend_bwd`); the bound and the
 design are noted in the source. `blend_tiles` is an autograd Function on
-CUDA tensors (forward kernel, then backward kernel); on CPU tensors it runs
-the plain version, which follows the TPU kernel's chunked log-space math
-(`_chunk_state`, tile-local monomials) and whose backward is autograd of that
-forward: `where`-gated, it has the JAX VJP's semantics (zero gradient at the
-0.99 clamp, for skipped splats and for latched pixels).
+CUDA tensors (forward kernel, then backward kernel, one launch each); on CPU
+tensors it runs the plain version, which follows the TPU kernel's chunked
+log-space math (`_chunk_state`, tile-local monomials) and whose backward is
+autograd of that forward: `where`-gated, it has the JAX VJP's semantics
+(zero gradient at the 0.99 clamp, for skipped splats and for latched
+pixels).
+
+The kernels cut each tile's list into segments walked in parallel
+(`segment_bounds`, `walk_end`) and skip the pairs outside a splat's
+conservative pixel box (`splat_box`, `warp_rects`); these host statements of the
+kernels' rules are what tests/test_torch_blend_layout.py rebuilds the
+kernels' decompositions from.
 
 `gather_splats` (table [C, N] → [C, T, K]) has a deterministic backward: a
 stable sort of the gather indices and a segment sum into [C, N]
@@ -33,7 +40,10 @@ T_EPS = 1e-4
 RGB = slice(6, 9)
 FEAT0 = 9  # features start here; C = 9 + n_feat
 KERNEL_FEATURES = 3  # the feature count csrc/blend.cu is instantiated for
-KERNEL_BATCH = 64    # splats the kernels stage at a time (K must be a multiple)
+KERNEL_BATCH = 64    # K must be a multiple of it (the wrapper's contract)
+KERNEL_SEGMENTS = 8  # segments of a tile's list: the forward's cluster size
+SEGMENT_ALIGN = 32   # a segment's length is a multiple of it
+STATE_ROWS = 7       # saved per segment: start T, the color and feature sums before it
 
 
 def _pixel_monomials(tile: int, device) -> torch.Tensor:
@@ -118,17 +128,79 @@ def blend_tiles_reference(counts: torch.Tensor, origins: torch.Tensor,
     return color_acc, lang_acc, log_t_final[:, None, :]
 
 
+def walk_end(count: int, k: int, chunk: int) -> int:
+    """Slots a tile walks: its count rounded up to the chunk, at most K."""
+    count = min(max(count, 0), k)
+    return min(k, -(-count // chunk) * chunk)
+
+
+def segment_bounds(n_end: int, segments: int = KERNEL_SEGMENTS):
+    """[(lo, hi)] of each segment of a list walked up to n_end: equal
+    lengths ⌈n_end / segments⌉ rounded up to SEGMENT_ALIGN, the last ones
+    short or empty (`segment` in csrc/blend.cu)."""
+    length = -(-(-(-n_end // segments)) // SEGMENT_ALIGN) * SEGMENT_ALIGN
+    return [(min(n_end, s * length), min(n_end, s * length + length))
+            for s in range(segments)]
+
+
+NO_BOX = 255   # x0 of the box of a splat whose alpha reaches 1/255 nowhere
+
+
+def splat_box(xm, ym, ca, cb, cc, op):
+    """The kernels' cull rule in plain tensor code (`splat_box` in
+    csrc/blend.cu), float32, elementwise over splats at tile-local (xm, ym)
+    with conic (ca, cb, cc) and opacity op: int32 (x0, x1, y0, y1), the box
+    of tile pixels where alpha ≥ 1/255 can hold. x0 = NO_BOX: nowhere
+    (opacity under 1/255, or the extent misses the tile); the whole tile
+    where the conic is not safely positive definite (never culled)."""
+    f = lambda x: torch.as_tensor(x, dtype=torch.float32)
+    xm, ym, ca, cb, cc, op = map(f, (xm, ym, ca, cb, cc, op))
+    c1, c2 = ca * xm + cb * ym, cc * ym + cb * xm
+    det = ca * cc - cb * cb
+    pd = (ca > 0) & (cc > 0) & (det > 1e-3 * ca * cc)
+    m = (0.5 * ca * xm * xm + 0.5 * cc * ym * ym + (cb * xm * ym).abs()
+         + 15.0 * (c1.abs() + c2.abs())
+         + 225.0 * (0.5 * ca.abs() + cb.abs() + 0.5 * cc.abs()))
+    live = op >= f(ALPHA_MIN) * (1.0 - 2.0 ** -20)
+    lg = torch.log(torch.where(live, 255.0 * op, torch.ones_like(op)))
+    tau = torch.clamp(2.0 * (lg + 1e-5 + 2e-6 * m), min=0.0)
+    safe_det = torch.where(pd, det, torch.ones_like(det))
+    ry = torch.sqrt(tau * ca / safe_det) * 1.001 + 1.0
+    rx = torch.sqrt(tau * cc / safe_det) * 1.001 + 1.0
+    nan0 = lambda x, v: torch.nan_to_num(x, nan=v)   # fmaxf / fminf drop a NaN
+    x0 = torch.clamp(nan0(torch.ceil(xm - rx), 0.0), min=0.0)
+    x1 = torch.clamp(nan0(torch.floor(xm + rx), 15.0), max=15.0)
+    y0 = torch.clamp(nan0(torch.ceil(ym - ry), 0.0), min=0.0)
+    y1 = torch.clamp(nan0(torch.floor(ym + ry), 15.0), max=15.0)
+    empty = ~((x0 <= x1) & (y0 <= y1))
+    box = [torch.clamp(v, -1, 255).to(torch.int32) for v in (x0, x1, y0, y1)]
+    full = [torch.full_like(box[0], v) for v in (0, 15, 0, 15)]
+    box = [torch.where(pd, b, fb) for b, fb in zip(box, full)]
+    box[0] = torch.where(pd & empty, torch.full_like(box[0], NO_BOX), box[0])
+    box[0] = torch.where(live, box[0], torch.full_like(box[0], NO_BOX))
+    return tuple(box)
+
+
+def warp_rects():
+    """[(x0, x1, y0, y1)] of each warp's rectangle of the tile (`Layout` in
+    csrc/blend.cu): four warps of 8×8 pixels (a thread takes two pixels of
+    one column), tiling the tile row by row. A warp walks the splats whose
+    box meets it."""
+    return [((i % 2) * 8, (i % 2) * 8 + 7, (i // 2) * 8, (i // 2) * 8 + 7)
+            for i in range(4)]
+
+
 def _library() -> ctypes.CDLL:
     lib = _cuda.load("blend")
     if lib.blend_fwd.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.blend_fwd.argtypes = [ptr] * 7 + [i32] * 4 + [ptr]
-        lib.blend_bwd.argtypes = [ptr] * 8 + [i32] * 4 + [ptr]
+        lib.blend_fwd.argtypes = [ptr] * 8 + [i32] * 4 + [ptr]
+        lib.blend_bwd.argtypes = [ptr] * 11 + [i32] * 4 + [ptr]
         lib.blend_fwd.restype = lib.blend_bwd.restype = i32
     return lib
 
 
-def _check(counts, origins, attrs, livet, n_feat, tile, chunk, *grads):
+def _check(counts, origins, attrs, livet, n_feat, tile, chunk, *rest):
     t, c_rows, k = attrs.shape
     if attrs.device.type != "cuda":
         raise ValueError(f"the blend kernels take CUDA tensors, got {attrs.device}")
@@ -145,9 +217,12 @@ def _check(counts, origins, attrs, livet, n_feat, tile, chunk, *grads):
               ("origins", origins, (t, 2), torch.float32),
               ("attrs", attrs, (t, c_rows, k), torch.float32),
               ("livet", livet, (t, 1, k), torch.float32)]
-    names = ("gcolor", "glang", "glogtf")
-    shapes = ((t, 3, tile * tile), (t, n_feat, tile * tile), (t, 1, tile * tile))
-    expect += [(nm, g, s, torch.float32) for nm, g, s in zip(names, grads, shapes)]
+    p = tile * tile
+    names = ("color", "lang", "state", "gcolor", "glang", "glogtf")
+    shapes = ((t, 3, p), (t, n_feat, p),
+              (t, KERNEL_SEGMENTS, STATE_ROWS, p),
+              (t, 3, p), (t, n_feat, p), (t, 1, p))
+    expect += [(nm, g, s, torch.float32) for nm, g, s in zip(names, rest, shapes)]
     for name, x, shape, dtype in expect:
         if (tuple(x.shape) != shape or x.dtype != dtype or x.device != attrs.device
                 or not x.is_contiguous() or x.data_ptr() % 16):
@@ -159,37 +234,41 @@ def _check(counts, origins, attrs, livet, n_feat, tile, chunk, *grads):
 def blend_forward(counts, origins, attrs, livet, n_feat: int, tile: int = 16,
                   chunk: int = 256):
     """Launch the forward kernel: (color [T,3,P], lang [T,F,P],
-    log_t_final [T,1,P])."""
+    log_t_final [T,1,P], state [T, KERNEL_SEGMENTS, 7, P]); `state` is what
+    the backward starts each segment from."""
     _check(counts, origins, attrs, livet, n_feat, tile, chunk)
     t, _, k = attrs.shape
     p = tile * tile
     color = attrs.new_empty(t, 3, p)
     lang = attrs.new_empty(t, n_feat, p)
     logtf = attrs.new_empty(t, 1, p)
+    state = attrs.new_empty(t, KERNEL_SEGMENTS, STATE_ROWS, p)
     with torch.cuda.device(attrs.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _library().blend_fwd(
             counts.data_ptr(), origins.data_ptr(), attrs.data_ptr(),
             livet.data_ptr(), color.data_ptr(), lang.data_ptr(),
-            logtf.data_ptr(), t, n_feat, k, chunk, stream)
+            logtf.data_ptr(), state.data_ptr(), t, n_feat, k, chunk, stream)
     if err:
         raise RuntimeError(f"blend forward kernel launch failed: CUDA error {err}")
     blend_forward.launches += 1
-    return color, lang, logtf
+    return color, lang, logtf, state
 
 
-def blend_backward(counts, origins, attrs, livet, gcolor, glang, glogtf,
-                   n_feat: int, tile: int = 16, chunk: int = 256):
-    """Launch the backward kernel: dattrs [T, C, K]."""
+def blend_backward(counts, origins, attrs, livet, color, lang, state, gcolor,
+                   glang, glogtf, n_feat: int, tile: int = 16, chunk: int = 256):
+    """Launch the backward kernel: dattrs [T, C, K], from the forward's
+    outputs color and lang and its `state`."""
     _check(counts, origins, attrs, livet, n_feat, tile, chunk,
-           gcolor, glang, glogtf)
+           color, lang, state, gcolor, glang, glogtf)
     t, _, k = attrs.shape
     dattrs = torch.zeros_like(attrs)
     with torch.cuda.device(attrs.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _library().blend_bwd(
             counts.data_ptr(), origins.data_ptr(), attrs.data_ptr(),
-            livet.data_ptr(), gcolor.data_ptr(), glang.data_ptr(),
+            livet.data_ptr(), color.data_ptr(), lang.data_ptr(),
+            state.data_ptr(), gcolor.data_ptr(), glang.data_ptr(),
             glogtf.data_ptr(), dattrs.data_ptr(), t, n_feat, k, chunk, stream)
     if err:
         raise RuntimeError(f"blend backward kernel launch failed: CUDA error {err}")
@@ -200,18 +279,21 @@ def blend_backward(counts, origins, attrs, livet, gcolor, glang, glogtf,
 class _BlendTiles(torch.autograd.Function):
     @staticmethod
     def forward(ctx, counts, origins, attrs, livet, n_feat, tile, chunk):
-        ctx.save_for_backward(counts, origins, attrs, livet)
+        color, lang, logtf, state = blend_forward(counts, origins, attrs, livet,
+                                                  n_feat, tile, chunk)
+        ctx.save_for_backward(counts, origins, attrs, livet, color, lang, state)
         ctx.args = (n_feat, tile, chunk)
-        return blend_forward(counts, origins, attrs, livet, n_feat, tile, chunk)
+        return color, lang, logtf
 
     @staticmethod
     def backward(ctx, *grads):
-        counts, origins, attrs, livet = ctx.saved_tensors
+        counts, origins, attrs, livet, color, lang, state = ctx.saved_tensors
         n_feat, tile, chunk = ctx.args
         rows = (3, n_feat, 1)   # an unused output's gradient arrives as None
         grads = [attrs.new_zeros(attrs.shape[0], r, tile * tile) if g is None
                  else g.contiguous() for g, r in zip(grads, rows)]
-        dattrs = blend_backward(counts, origins, attrs, livet, *grads, *ctx.args)
+        dattrs = blend_backward(counts, origins, attrs, livet, color, lang,
+                                state, *grads, *ctx.args)
         return None, None, dattrs, None, None, None, None
 
 
