@@ -38,7 +38,12 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                    package): voxelize on cell boundaries, the micro config's
                    act in fp32 and bf16 on each conv route, and `small_train`:
                    the micro configs' `update` in fp32, dropout 0, the same
-                   draws (`w_geo`; `w_geo_dyna` on the conv kernels);
+                   draws (`w_geo`; `w_geo_dyna` and `w_geo_sem_dyna` on the
+                   conv kernels, the latter with one `gt_embed` for both);
+                   `sem_check`: the SD VAE (ch 32, 64²) and its GT-embed
+                   pipeline on the card against the CPU, then at SD v1 width
+                   on a 512² image its device time, TFLOP/s and peak memory,
+                   and the GT-embed function's wall time for one 128² view;
   4. slice       — the act/eval path at the full width of `config.w_geo()`
                    (V=100, 2048×512 latents, 6 layers of 8×64 heads, bf16, one
                    128² front camera), random weights from seed 0, through the
@@ -69,7 +74,20 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
   9. conv_routes — one `w_geo_dyna` batch (gate open) through
                    `policy_conv_impl="pallas"` and `"z2d"`: loss, gradient
                    norm, step time and act latency of each, and
-                   torch.profiler over 2 training steps of the pallas route.
+                   torch.profiler over 2 training steps of the pallas route;
+ 10. sem_slice   — the full model, `--variant w_geo_sem_dyna`, as the dyna
+                   slice and with `foundation_checkpoint=random-init`: the
+                   SD VAE (not the stub) computes each batch's `gt_embed` in
+                   the prefetch thread on a CUDA stream of its own; the same
+                   launches a step, `embed_loss` finite and non-zero every
+                   step, the wait in `next(batches)`, and the wall and CPU
+                   time of each embedding call in the prefetch thread; then
+                   `sem_act`;
+ 11. sem_routes  — one `w_geo_sem_dyna` batch (gate open, its `gt_embed`
+                   from the SD VAE) through the kernel route (flash + pallas
+                   blend + pallas conv) and the plain route (xla + xla +
+                   z2d), as `train_routes`, and torch.profiler over 2
+                   training steps of the kernel route.
 Then one JSON line of kernel records, the card's name and power limit, and
 last, the device line.
 
@@ -77,7 +95,10 @@ last, the device line.
 flash kernels' times (`flash_times`, through the public entry point): run
 from the root of two checkouts in turn, it times both with one yardstick.
 `--blend-times` does the same for the tile blend pair (`blend_times`,
-through `blend_tiles` and autograd).
+through `blend_tiles` and autograd). `--embed-ab` builds the kernels and
+compares where the SD VAE's ground-truth embedding runs in `w_geo_sem_dyna`
+training (`embed_ab`: its prefetch thread on a stream of its own or on the
+default stream, the main thread, or no tower).
 
 Nothing of JAX is imported. Scratch files go under build/chip_smoke/ in the
 checkout. With no CUDA device, or without the package beside it, the script
@@ -1258,21 +1279,26 @@ def micro_train_batch(b: int = 2, hw: int = 32, seed: int = 0) -> dict:
 def phase_small_train(counters: dict) -> None:
     """The micro configs' `update`, card against CPU: fp32, dropout rates 0,
     the same augmentation draws; `w_geo` on the default conv route, and
-    `w_geo_dyna` with `policy_conv_impl="pallas"` and the warm-up gate open
-    (two renders, the deformation field, the conv kernels in fp32). Losses
-    within 1e-4·max(1, |loss|), every parameter gradient within 1e-3·max|g|
-    of its leaf plus 1e-5 (the floor covers a leaf whose exact gradient is
-    zero, such as the trans decoder's bias: the gradient of a bias shared by
-    all logits of a softmax is Σp − 1, rounding noise on both devices), and
-    every counter of the route advanced."""
+    `w_geo_dyna` and `w_geo_sem_dyna` with `policy_conv_impl="pallas"` and
+    the warm-up gate open (two renders, the deformation field, the conv
+    kernels in fp32; the semantic tier with one `gt_embed` for both sides,
+    so the blend backward's feature rows carry the embed loss's gradient).
+    Losses within 1e-4·max(1, |loss|), every parameter gradient within
+    1e-3·max|g| of its leaf plus 1e-5 (the floor covers a leaf whose exact
+    gradient is zero, such as the trans decoder's bias: the gradient of a
+    bias shared by all logits of a softmax is Σp − 1, rounding noise on both
+    devices), and every counter of the route advanced."""
     import torch
     from manigaussian_tpu_torch import config as C
     from manigaussian_tpu_torch.agents.bc_agent import ManiGaussianBCAgent
     from manigaussian_tpu_torch.ops.augmentation import sample_se3_draws
 
+    from manigaussian_tpu_torch.models.foundation import StubFeatureExtractor
+
     conv = ("conv3d_fwd", "conv3d_dw", "conv3d_dw_resident")
     for variant, conv_impl, idle in (("w_geo", "z2d", conv),
-                                     ("w_geo_dyna", "pallas", conv[2:])):
+                                     ("w_geo_dyna", "pallas", conv[2:]),
+                                     ("w_geo_sem_dyna", "pallas", conv[2:])):
         cfg = C.micro_variant(variant)
         nr = cfg.method.neural_renderer
         cfg = dataclasses.replace(cfg, method=dataclasses.replace(
@@ -1280,6 +1306,11 @@ def phase_small_train(counters: dict) -> None:
             policy_conv_impl=conv_impl, neural_renderer=dataclasses.replace(
                 nr, next_mlp=dataclasses.replace(nr.next_mlp, warm_up=0))))
         batch = micro_train_batch()
+        sem = bool(nr.foundation_model_name)
+        if sem:
+            # one ground-truth embedding, made on the CPU, for both sides
+            batch["gt_embed"] = StubFeatureExtractor(device="cpu").embed_fn(
+                nr.d_embed)(batch["nerf_target_rgb"])
         draws = sample_se3_draws(torch.Generator().manual_seed(3), 2,
                                  cfg.method.aug_rpy,
                                  cfg.method.rotation_resolution)
@@ -1305,7 +1336,8 @@ def phase_small_train(counters: dict) -> None:
               and all(e <= 1.0 for e in grad_err.values())
               and all((v == 0) == (k in idle) for k, v in advanced.items())
               and (variant == "w_geo" or (metrics["cuda"]["dyna_loss"] > 0
-                                          and advanced["blend_fwd"] == 2)))
+                                          and advanced["blend_fwd"] == 2))
+              and (metrics["cuda"]["embed_loss"] != 0) == sem)
         log("small_train", config=f"micro_variant({variant}) fp32, dropout 0, "
             f"batch 2, conv={conv_impl}",
             losses_cuda=metrics["cuda"], loss_rel_err=loss_err,
@@ -1319,6 +1351,149 @@ def phase_small_train(counters: dict) -> None:
                                  f"{advanced}")
 
 
+# the SD VAE on the card against the CPU: each output within VAE_TOL of its
+# scale (fp32; cuDNN and the CPU sum the convolutions in other orders); the
+# GT embedding (the same PCA Ω on both) per image and channel up to a sign
+# within EMBED_TOL of its scale
+VAE_TOL = 1e-4
+EMBED_TOL = 1e-3
+
+
+def vae_flops(hw: int, **dims) -> float:
+    """Operations of one SD VAE forward (models/sd_vae.py, to the last
+    decoder tap) on one hw² image, counted from the shapes on the meta
+    device: 2·outputs·Cin·k² a convolution, 4·N²·C an attention (q·kᵀ and
+    p·v). Norms and activations are not counted."""
+    import torch
+    from manigaussian_tpu_torch.models import sd_vae as sv
+    total = [0.0]
+
+    def conv_hook(mod, inp, out):
+        total[0] += 2.0 * out.numel() * mod.weight[0].numel()
+
+    def attn_hook(mod, inp, out):
+        b, c, h, w = inp[0].shape
+        total[0] += 4.0 * b * (h * w) ** 2 * c
+
+    with torch.device("meta"):
+        model = sv.SDVae(**dims)
+        x = torch.zeros(1, 3, hw, hw)
+    for mod in model.modules():
+        if isinstance(mod, torch.nn.Conv2d):
+            mod.register_forward_hook(conv_hook)
+        elif isinstance(mod, sv.AttnBlock):
+            mod.register_forward_hook(attn_hook)
+    with torch.no_grad():
+        model(x)
+    return total[0]
+
+
+def phase_sem_check() -> dict:
+    """The semantic tier's frozen tower on the card. (1) The SD VAE at ch 32
+    on two 64² images, fp32, card against CPU: the latent and the encoder
+    and decoder taps within VAE_TOL of their scale; the GT-embed pipeline
+    (`embed_fn`: resize → VAE → tap → resize → PCA) on two 32² views at a
+    64² feature size, within EMBED_TOL up to a sign per image and channel.
+    (2) At SD v1 width (random-init, ch 128) on one 512² image: the device
+    time of the forward (summed kernel durations, and the host loop's
+    events), its TFLOP/s on the operations `vae_flops` counts, the same with
+    cuDNN's TF32 convolutions, and the peak memory of the forward above what
+    was allocated before it. (3) `embed_fn`'s wall time for a batch of one
+    128² view, the prefetch thread's work a `w_geo_sem_dyna` step."""
+    import copy
+    import numpy as np
+    import torch
+    from manigaussian_tpu_torch.models import foundation as fd
+    from manigaussian_tpu_torch.models import sd_vae as sv
+
+    gen = torch.Generator().manual_seed(1)
+    cpu = sv.SDVae(ch=32).init_params(torch.Generator().manual_seed(0)).eval()
+    gpu = copy.deepcopy(cpu).cuda()
+    x = torch.rand(2, 3, 64, 64, generator=gen) * 2 - 1
+    with torch.no_grad():
+        oc, og = cpu(x), gpu(x.cuda())
+    errs = {}
+    for part in ("latent", "encoder_features", "decoder_features"):
+        refs = oc[part] if isinstance(oc[part], list) else [oc[part]]
+        gots = og[part] if isinstance(og[part], list) else [og[part]]
+        errs[part] = [((g.cpu() - r).abs().max() / r.abs().max()).item()
+                      for g, r in zip(gots, refs)]
+    path = os.path.join(WORK, "sd_vae_ch32.pt")
+    torch.save(cpu.state_dict(), path)
+    rgb = np.random.default_rng(1).uniform(size=(2, 32, 32, 3)).astype(
+        np.float32)
+    emb = {dev: fd.SDVaeFeatureExtractor(path, feature_hw=64, device=dev)
+           .embed_fn(3)(rgb) for dev in ("cpu", "cuda")}
+    embed_err = float(max(
+        min(np.abs(emb["cuda"][i, ..., k] - emb["cpu"][i, ..., k]).max(),
+            np.abs(emb["cuda"][i, ..., k] + emb["cpu"][i, ..., k]).max())
+        / np.abs(emb["cpu"][i, ..., k]).max()
+        for i in range(2) for k in range(3)))
+    small_ok = (all(e <= VAE_TOL for v in errs.values() for e in v)
+                and embed_err <= EMBED_TOL)
+    del cpu, gpu, og
+
+    ex = fd.SDVaeFeatureExtractor(None, device="cuda")
+    img = (torch.rand(1, 3, ex.feature_hw, ex.feature_hw, generator=gen)
+           * 2 - 1).cuda()
+
+    def forward():
+        with torch.no_grad():
+            return ex.model(img)["decoder_features"][-1]
+
+    flops = vae_flops(ex.feature_hw)
+    weights = sum(p.numel() * p.element_size() for p in ex.model.parameters())
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tap = forward()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    tap_ok = (list(tap.shape) == [1, 512, ex.feature_hw // 4,
+                                  ex.feature_hw // 4]
+              and bool(torch.isfinite(tap).all()))
+    del tap
+    dev_ms = device_ms(forward, iters=5, warmup=1)
+    host_ms = cuda_ms(forward, iters=5, warmup=1)
+    # the same forward with cuDNN's TF32 convolutions, PyTorch's default
+    # outside this script (which turns TF32 off for its comparisons)
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        tf32_ms = device_ms(forward, iters=5, warmup=1)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+
+    embed = ex.embed_fn(3)
+    view = np.random.default_rng(2).uniform(size=(1, 128, 128, 3)).astype(
+        np.float32)
+    out = embed(view)
+    wall = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        out = embed(view)
+        wall.append((time.perf_counter() - t0) * 1e3)
+    embed_ok = (out.shape == (1, 128, 128, 3) and out.dtype == np.float32
+                and bool(np.isfinite(out).all()))
+    ok = small_ok and tap_ok and embed_ok
+    log("sem_check", small="SDVae ch 32, 2×64², fp32, card vs CPU",
+        rel_err=errs, tol=VAE_TOL,
+        embed_rel_err_up_to_sign=embed_err, embed_tol=EMBED_TOL,
+        full=f"SDVae ch 128 (random-init), 1×{ex.feature_hw}², fp32",
+        tflop=flops / 1e12, device_ms=dev_ms, host_loop_ms=host_ms,
+        tflops_per_s=flops / dev_ms / 1e9,
+        fp32_bound_ms=flops / PEAK_FLOPS["float32"] * 1e3,
+        device_ms_cudnn_tf32=tf32_ms,
+        weight_bytes=weights, peak_bytes_of_the_forward=peak,
+        embed_fn_wall_ms=wall, embed_fn_wall_ms_median=statistics.median(wall),
+        ok=ok)
+    if not ok:
+        raise AssertionError(f"the SD VAE on the card failed its checks: "
+                             f"{errs} {embed_err}")
+    del ex, embed, img
+    torch.cuda.empty_cache()
+    return {"device_ms": dev_ms, "flops": flops}
+
+
 TASK = "open_drawer"
 TRAIN_OVERRIDES = [f"rlbench.tasks=[{TASK}]", "rlbench.demos=2",
                    "replay.use_disk=false", "framework.log_freq=1",
@@ -1327,6 +1502,10 @@ TRAIN_OVERRIDES = [f"rlbench.tasks=[{TASK}]", "rlbench.demos=2",
 DYNA_WARM_UP = 2
 DYNA_OVERRIDES = ["method.policy_conv_impl=pallas",
                   f"method.neural_renderer.next_mlp.warm_up={DYNA_WARM_UP}"]
+# the full model (w_geo_sem_dyna) the same way, its ground-truth embedding
+# from the SD VAE with random weights: the real ODISE compute, not the stub
+SEM_OVERRIDES = [*DYNA_OVERRIDES,
+                 "method.neural_renderer.foundation_checkpoint=random-init"]
 
 
 def train_config(variant: str, overrides=()):
@@ -1353,16 +1532,36 @@ def expected_launches(m, step: int) -> dict:
             "conv3d_dw_resident": 0}
 
 
+def timed_calls(fn, wall_ms: list, cpu_ms: list):
+    """`fn`, appending each call's wall time and the calling thread's CPU
+    time (`time.thread_time`: Python, launches, and the spin-wait of the
+    copy to the host) to the two lists, in ms."""
+    def timed(*args):
+        t_wall, t_cpu = time.perf_counter(), time.thread_time()
+        out = fn(*args)
+        cpu_ms.append((time.thread_time() - t_cpu) * 1e3)
+        wall_ms.append((time.perf_counter() - t_wall) * 1e3)
+        return out
+    return timed
+
+
 def phase_train_slice(counters: dict, variant: str = "w_geo", overrides=(),
-                      steps: int = 6, demos: str = None) -> dict:
+                      steps: int = 6, demos: str = None,
+                      label: str = "train_slice") -> dict:
     """The training path at full width through the port's train entry point
     (main()), then a resume from its checkpoint for 2 more steps. The counts
-    are set to 0 just before the first run and read just after it."""
+    are set to 0 just before the first run and read just after it. Also
+    timed: each step's wait in `next(batches)` (the prefetch thread, which
+    in the semantic tiers also runs the frozen tower) and each GT-embedding
+    call there; recorded: the feature extractors the entry point built (one
+    a run)."""
     import numpy as np
     import torch
     from manigaussian_tpu_torch import train as train_cli
     from manigaussian_tpu_torch.agents.bc_agent import ManiGaussianBCAgent
+    from manigaussian_tpu_torch.data.pipeline import BatchIterator
     from manigaussian_tpu_torch.data.synthetic import generate_task
+    from manigaussian_tpu_torch.models import foundation
     from manigaussian_tpu_torch.rendering.neural_renderer import NeuralRenderer
     from manigaussian_tpu_torch.utils.checkpoint import list_checkpoints
 
@@ -1380,8 +1579,29 @@ def phase_train_slice(counters: dict, variant: str = "w_geo", overrides=(),
 
     per_step, expect, step_ms, metrics_seen = [], [], [], []
     overflow, rendered = [], []     # per step, per render: (splats, gaussians)
+    wait_ms, extractors = [], []
+    embed_wall_ms, embed_cpu_ms = [], []   # per call, in the calling thread
     orig_update = ManiGaussianBCAgent.update
     orig_render = NeuralRenderer._render
+    orig_next = BatchIterator.__next__
+    orig_create = foundation.create_feature_extractor
+
+    def timed_next(self):
+        t_start = time.perf_counter()
+        batch = orig_next(self)
+        wait_ms.append((time.perf_counter() - t_start) * 1e3)
+        return batch
+
+    def recorded_create(*args, **kwargs):
+        ex = orig_create(*args, **kwargs)
+        extractors.append(type(ex).__name__)
+        make = ex.embed_fn
+
+        def timed_embed_fn(d_embed):
+            return timed_calls(make(d_embed), embed_wall_ms, embed_cpu_ms)
+
+        ex.embed_fn = timed_embed_fn
+        return ex
 
     def watched_render(self, params, cameras):
         out = orig_render(self, params, cameras)
@@ -1406,6 +1626,8 @@ def phase_train_slice(counters: dict, variant: str = "w_geo", overrides=(),
             *TRAIN_OVERRIDES, *overrides]
     ManiGaussianBCAgent.update = counted_update
     NeuralRenderer._render = watched_render
+    BatchIterator.__next__ = timed_next
+    foundation.create_feature_extractor = recorded_create
     try:
         for fn in counters.values():
             fn.launches = 0
@@ -1424,22 +1646,27 @@ def phase_train_slice(counters: dict, variant: str = "w_geo", overrides=(),
     finally:
         ManiGaussianBCAgent.update = orig_update
         NeuralRenderer._render = orig_render
+        BatchIterator.__next__ = orig_next
+        foundation.create_feature_extractor = orig_create
 
     finite = all(np.isfinite(v) for row in metrics_seen for v in row.values())
     heads = ("total_loss", "bc_loss", "trans_loss", "rot_loss", "grip_loss",
-             "collision_loss", "rgb_loss", "dyna_loss", "psnr",
+             "collision_loss", "rgb_loss", "embed_loss", "dyna_loss", "psnr",
              "overflow_splats", "overflow_gaussians")
     dyna = m.neural_renderer.use_dynamic_field
+    sem = bool(m.neural_renderer.foundation_model_name)
     ok = (n_first == steps and len(per_step) == steps + 2 and finite
           and per_step == expect
           and [len(o) for o in overflow] == [e["blend_fwd"] for e in expect]
           and all(h in row for h in heads for row in metrics_seen)
           and all((row["dyna_loss"] > 0) == dyna for row in metrics_seen)
+          and all((row["embed_loss"] != 0) == sem for row in metrics_seen)
+          and len(extractors) == (2 if sem else 0)
           and ckpts == [steps - 1]
           and launches == {k: sum(row[k] for row in expect[:n_first])
                            for k in counters})
     warm = step_ms[2:n_first]
-    log("train_slice", config=variant, overrides=list(overrides),
+    log(label, config=variant, overrides=list(overrides),
         voxel=m.voxel_sizes[0],
         latents=[m.num_latents, m.latent_dim], depth=m.transformer_depth,
         heads=[m.latent_heads, m.latent_dim_head], dtype=m.policy_dtype,
@@ -1452,21 +1679,32 @@ def phase_train_slice(counters: dict, variant: str = "w_geo", overrides=(),
         losses_first=metrics_seen[0], losses_last=metrics_seen[n_first - 1],
         overflow_per_step_and_render=overflow,
         step_ms=step_ms, step_ms_median_after_2=statistics.median(warm),
+        next_batch_wait_ms=wait_ms,
+        next_batch_wait_ms_median_after_2=statistics.median(
+            wait_ms[2:n_first]),
+        extractors=extractors,
+        embed_wall_ms=embed_wall_ms, embed_cpu_ms=embed_cpu_ms,
+        embed_wall_ms_median=statistics.median(embed_wall_ms or [0.0]),
+        embed_cpu_ms_median=statistics.median(embed_cpu_ms or [0.0]),
         peak_device_bytes=peak, setup_s=setup_s, train_s=train_s, ok=ok)
     if not ok:
         raise AssertionError(f"the {variant} training slice failed its checks")
     return {"launches": launches, "step_ms": statistics.median(warm),
-            "demos": demos, "logdir": logdir, "cfg": cfg}
+            "demos": demos, "logdir": logdir, "cfg": cfg,
+            "extractors": extractors}
 
 
-def phase_dyna_slice(counters: dict, demos: str) -> dict:
-    """This slice's main path: `w_geo_dyna` with `policy_conv_impl="pallas"`
-    at full width, the warm-up gate at step 2: 6 training steps through the
-    train entry point, a checkpoint, a resume for 2 more steps (one render a
-    step before the gate, two after it and after the resume); then `act`
-    through the eval entry point on that checkpoint: per act, the conv
-    forward twice and the flash forward once per self-attention layer."""
-    tr = phase_train_slice(counters, "w_geo_dyna", DYNA_OVERRIDES, demos=demos)
+def phase_tier_slice(counters: dict, demos: str, variant: str, overrides,
+                     label: str, act_label: str, steps: int = 6) -> dict:
+    """A tier with `policy_conv_impl="pallas"` at full width, the warm-up gate
+    at step 2: `steps` training steps through the train entry point, a
+    checkpoint, a resume for 2 more steps (one render a step before the
+    gate, two after it and after the resume); then `act` through the eval
+    entry point on that checkpoint (which loads it without the renderer):
+    per act, the conv forward twice and the flash forward once per
+    self-attention layer."""
+    tr = phase_train_slice(counters, variant, overrides, steps=steps,
+                           demos=demos, label=label)
     m = tr["cfg"].method
     calls, launches, rows, eval_s = drive_eval(
         counters, os.path.join(tr["logdir"], "seed0"), demos)
@@ -1475,11 +1713,12 @@ def phase_dyna_slice(counters: dict, demos: str) -> dict:
         "conv3d_fwd": 2 * calls}
     ok = (calls >= 2 and launches == expect and len(rows) == 1
           and "eval_envs/return" in rows[0])
-    log("dyna_act", config="w_geo_dyna", conv_impl=m.policy_conv_impl,
+    log(act_label, config=variant, conv_impl=m.policy_conv_impl,
         act_calls=calls, launches=launches, expected=expect, rows=rows,
         eval_s=eval_s, ok=ok)
     if not ok:
-        raise AssertionError("act on the w_geo_dyna checkpoint failed its checks")
+        raise AssertionError(f"act on the {variant} checkpoint failed its "
+                             "checks")
     return {**tr, "act_launches": launches, "act_calls": calls}
 
 
@@ -1487,9 +1726,11 @@ def phase_train_routes(demos: str, label: str, variant: str, overrides,
                        routes: dict, profile: str) -> None:
     """One batch from the same weights through two routes (`routes`: name →
     fields of the method config and of its renderer), dropout 0, the same
-    draws: loss within ROUTE_TOL·max(1, |loss|), global gradient norm within
-    ROUTE_TOL relative; the step time (alternating) and the act latency of
-    each route; then torch.profiler over 2 training steps of route `profile`.
+    draws (and, in the semantic tiers, the same `gt_embed`, made once by the
+    tier's extractor on the card): loss within ROUTE_TOL·max(1, |loss|),
+    global gradient norm within ROUTE_TOL relative; the step time
+    (alternating) and the act latency of each route; then torch.profiler
+    over 2 training steps of route `profile`.
     """
     import numpy as np
     import torch
@@ -1508,7 +1749,17 @@ def phase_train_routes(demos: str, label: str, variant: str, overrides,
                 cfg.method.rotation_resolution, cfg.rlbench.episode_length,
                 create_language_model("stub"))
     rng = np.random.default_rng(0)
-    batch = assemble_batch(replay.sample(1, rng), rng, cfg.method.num_view_for_nerf)
+    nr = cfg.method.neural_renderer
+    embed_fn = None
+    if nr.foundation_model_name:
+        from manigaussian_tpu_torch.models.foundation import \
+            create_feature_extractor
+        embed_fn = create_feature_extractor(
+            nr.foundation_model_name, nr.foundation_checkpoint,
+            device="cuda").embed_fn(nr.d_embed)
+    batch = assemble_batch(replay.sample(1, rng), rng,
+                           cfg.method.num_view_for_nerf, embed_fn=embed_fn)
+    del embed_fn
     draws = sample_se3_draws(torch.Generator().manual_seed(5), 1,
                              cfg.method.aug_rpy, cfg.method.rotation_resolution)
     agents = {}
@@ -1524,7 +1775,7 @@ def phase_train_routes(demos: str, label: str, variant: str, overrides,
         out = a.update(batch, torch.Generator().manual_seed(0), draws=draws)
         loss[route] = float(out["total_loss"])
         heads[route] = {k: float(out[k]) for k in ("bc_loss", "rgb_loss",
-                                                   "dyna_loss")}
+                                                   "embed_loss", "dyna_loss")}
         gnorm[route] = float(torch.sqrt(sum((p.grad.float() ** 2).sum()
                                             for p in a.qfn.parameters()
                                             if p.grad is not None)))
@@ -1578,10 +1829,115 @@ def phase_train_routes(demos: str, label: str, variant: str, overrides,
         f"{variant} training step, route {profile}", calls=2)
 
 
+def embed_ab(rounds: int = 3, steps: int = 5) -> dict:
+    """Where the SD VAE's GT embedding runs in `w_geo_sem_dyna` training.
+    One agent (the train slice's config: kernel route, pallas conv, random-
+    init VAE; the gate open from step 0) and, for each design, a fresh
+    `BatchIterator` over one replay with seed 0, so every design trains on
+    the same batches. The designs, in rounds (A B C D, then D C B A, ...):
+      own_stream     — the prefetch thread computes `gt_embed` on a CUDA
+                       stream of its own (`make_embed_fn`'s design);
+      default_stream — the prefetch thread, on the default stream;
+      main_thread    — the main thread, between `next(batches)` and
+                       `update`;
+      none           — no tower: one fixed `gt_embed` (the step alone).
+    Per design, after 2 warm-up steps: each step's wall time from
+    `next(batches)` to the loss on the host, the wait in `next`, and each
+    embedding call's wall and CPU time in its thread."""
+    import numpy as np
+    import torch
+    from manigaussian_tpu_torch.agents.bc_agent import ManiGaussianBCAgent
+    from manigaussian_tpu_torch.data.language import create_language_model
+    from manigaussian_tpu_torch.data.pipeline import BatchIterator, fill_replay
+    from manigaussian_tpu_torch.data.replay import TaskUniformReplay
+    from manigaussian_tpu_torch.data.synthetic import generate_task
+    from manigaussian_tpu_torch.models import foundation as fd
+
+    cfg = train_config("w_geo_sem_dyna",
+                       (*SEM_OVERRIDES,
+                        "method.neural_renderer.next_mlp.warm_up=0"))
+    m, nr = cfg.method, cfg.method.neural_renderer
+    demos = os.path.join(WORK, "train_demos")
+    generate_task(demos, TASK, num_episodes=2, timesteps=16,
+                  h=cfg.rlbench.camera_resolution[0],
+                  w=cfg.rlbench.camera_resolution[1], nerf_views=3,
+                  nerf_hw=nr.image_height)
+    replay = TaskUniformReplay()
+    fill_replay(replay, demos, TASK, 2, cfg.rlbench.cameras,
+                cfg.rlbench.scene_bounds, m.voxel_sizes[0],
+                m.rotation_resolution, cfg.rlbench.episode_length,
+                create_language_model("stub"))
+    ex = fd.create_feature_extractor(nr.foundation_model_name,
+                                     nr.foundation_checkpoint, device="cuda")
+    agent = ManiGaussianBCAgent(cfg, device="cuda", seed=0)
+
+    def plain(rgb):
+        x = torch.as_tensor(np.asarray(rgb, np.float32)).cuda()
+        return fd.extract_gt_embed(x, ex, nr.d_embed).cpu().numpy()
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+
+    def own_stream(rgb):
+        with torch.cuda.stream(side):
+            return plain(rgb)
+
+    fixed = None
+    names = ("own_stream", "default_stream", "main_thread", "none")
+    res = {n: {"step_ms": [], "wait_ms": [], "embed_wall_ms": [],
+               "embed_cpu_ms": []} for n in names}
+
+    def run(name: str) -> None:
+        nonlocal fixed
+        r = res[name]
+        wall, cpu = [], []
+        fn = {"own_stream": own_stream, "default_stream": plain}.get(name)
+        it = BatchIterator(replay, cfg.replay.batch_size, seed=0,
+                           num_view_for_nerf=m.num_view_for_nerf,
+                           embed_fn=fn and timed_calls(fn, wall, cpu))
+        inline = timed_calls(plain, wall, cpu)
+        try:
+            for i in range(2 + steps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                batch = next(it)
+                t1 = time.perf_counter()
+                if name == "main_thread":
+                    batch["gt_embed"] = inline(batch["nerf_target_rgb"])
+                elif name == "none":
+                    if fixed is None:
+                        fixed = plain(batch["nerf_target_rgb"])
+                    batch["gt_embed"] = fixed
+                loss = float(agent.update(
+                    batch, torch.Generator().manual_seed(i))["total_loss"])
+                t2 = time.perf_counter()
+                if not np.isfinite(loss):
+                    raise AssertionError(f"embed_ab {name}: loss {loss}")
+                if i >= 2:
+                    r["step_ms"].append((t2 - t0) * 1e3)
+                    r["wait_ms"].append((t1 - t0) * 1e3)
+        finally:
+            it.close()
+        r["embed_wall_ms"] += wall[2:]
+        r["embed_cpu_ms"] += cpu[2:]
+
+    for k in range(rounds):
+        for name in (names if k % 2 == 0 else names[::-1]):
+            run(name)
+    out = {n: {**r, **{f"{key}_median": statistics.median(v)
+                       for key, v in r.items() if v}}
+           for n, r in res.items()}
+    log("embed_ab", config="w_geo_sem_dyna", rounds=rounds,
+        steps_per_round=steps, port_design="own_stream", designs=out, ok=True)
+    del agent, ex
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv) -> int:
-    if argv not in ([], ["--flash-times"], ["--blend-times"]):
+    if argv not in ([], ["--flash-times"], ["--blend-times"], ["--embed-ab"]):
         print(f"chip_smoke: unknown arguments {argv}; takes none, "
-              "--flash-times or --blend-times", file=sys.stderr)
+              "--flash-times, --blend-times or --embed-ab", file=sys.stderr)
         return 2
     try:
         import torch
@@ -1626,11 +1982,17 @@ def main(argv) -> int:
         phase_build()
         blend_times()
         return 0
+    if argv == ["--embed-ab"]:
+        # where the semantic tiers' GT embedding runs, in one call
+        phase_build()
+        embed_ab()
+        return 0
     t_start = time.time()
     phase_build()
     records = {**phase_flash(), **phase_blend(), **phase_conv()}
     phase_small()
     phase_small_train(counters)
+    phase_sem_check()
     sl = phase_slice(counters)
     phase_routes(sl["cfg"], sl["logdir"], sl["demos"])
     tr = phase_train_slice(counters)
@@ -1638,23 +2000,39 @@ def main(argv) -> int:
         tr["demos"], "train_routes", "w_geo", (),
         {"kernel": ({"policy_attn_impl": "flash"}, {"backend": "pallas"}),
          "plain": ({"policy_attn_impl": "xla"}, {"backend": "xla"})}, "kernel")
-    dy = phase_dyna_slice(counters, tr["demos"])
+    dy = phase_tier_slice(counters, tr["demos"], "w_geo_dyna", DYNA_OVERRIDES,
+                          "train_slice", "dyna_act")
     phase_train_routes(
         tr["demos"], "conv_routes", "w_geo_dyna",
         ("method.neural_renderer.next_mlp.warm_up=0",),
         {"pallas": ({"policy_conv_impl": "pallas"}, {}),
          "z2d": ({"policy_conv_impl": "z2d"}, {})}, "pallas")
+    se = phase_tier_slice(counters, tr["demos"], "w_geo_sem_dyna",
+                          SEM_OVERRIDES, "sem_slice", "sem_act")
+    if se["extractors"] != ["SDVaeFeatureExtractor"] * 2:
+        raise AssertionError(f"w_geo_sem_dyna built {se['extractors']}, not "
+                             "the SD VAE")
+    phase_train_routes(
+        tr["demos"], "sem_routes", "w_geo_sem_dyna",
+        (*SEM_OVERRIDES, "method.neural_renderer.next_mlp.warm_up=0"),
+        {"kernel": ({"policy_attn_impl": "flash", "policy_conv_impl": "pallas"},
+                    {"backend": "pallas"}),
+         "plain": ({"policy_attn_impl": "xla", "policy_conv_impl": "z2d"},
+                   {"backend": "xla"})}, "kernel")
     # launches on the main paths, each read just after its run: this slice's
-    # training run (`launches`), and every path by name. A kernel of a path
-    # that the path never launched fails the run; the resident dW scheme is
-    # on no path (the backward uses the workspace scheme) and is held to its
-    # plain version and timed in phase `conv` only.
+    # training run (`launches`: the full model, w_geo_sem_dyna), and every
+    # path by name. A kernel of a path that the path never launched fails
+    # the run; the resident dW scheme is on no path (the backward uses the
+    # workspace scheme) and is held to its plain version and timed in phase
+    # `conv` only.
     paths = {"act_w_geo": sl["launches"], "train_w_geo": tr["launches"],
              "train_w_geo_dyna": dy["launches"],
-             "act_w_geo_dyna": dy["act_launches"]}
+             "act_w_geo_dyna": dy["act_launches"],
+             "train_w_geo_sem_dyna": se["launches"],
+             "act_w_geo_sem_dyna": se["act_launches"]}
     off_path = {"conv3d_dw_resident"}
     for name, rec in records.items():
-        rec["launches"] = dy["launches"][name]
+        rec["launches"] = se["launches"][name]
         rec["launches_by_path"] = {p: c[name] for p, c in paths.items()}
         if (rec["launches"] == 0) != (name in off_path):
             raise AssertionError(f"kernel {name}: {rec['launches']} launches "

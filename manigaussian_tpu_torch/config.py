@@ -65,9 +65,11 @@ class NeuralRendererConfig:
     zfar: float = 4.0
     znear: float = 0.1
     foundation_model_name: Optional[str] = None  # None | 'diffusion' | 'dinov2'
-    # local checkpoint for the semantic tower: a torch-hub DINOv2 .pt routes
-    # through the Flax ViT (models/dinov2.py); a directory through
-    # transformers. None + 'dinov2'/'diffusion' -> stub with a warning.
+    # the semantic tower's weights (models/foundation.create_feature_extractor):
+    # 'dinov2' + a torch-hub .pt file -> models/dinov2.py (a directory, the
+    # JAX package's transformers route, raises); 'diffusion' + a CompVis
+    # .ckpt/.pt -> models/sd_vae.py, + 'random-init' -> the same VAE with
+    # random weights from seed 0. None -> stub with a warning.
     foundation_checkpoint: Optional[str] = None
     d_embed: int = 3
     loss_embed_fn: str = "cosine"

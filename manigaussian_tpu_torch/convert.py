@@ -14,12 +14,19 @@ U-Net's parameter names follow construction order in flax (a nested
 
 The `neural_renderer` subtree of the Gaussian renderer maps onto the
 renderer's modules (`gs_model/encoder`, `gs_model/regresser`,
-`gs_model/deformation`), so a whole JAX `TrainState.params` tree loads; the
-GNFactor NeRF renderer is not ported.
+`gs_model/deformation`, whose first layer is 3 inputs wider in the semantic
+tiers), so a whole JAX `TrainState.params` tree loads; the GNFactor NeRF
+renderer is not ported.
+
+The frozen towers of the semantic tiers: `sd_vae_state_dict` (the flax
+`SDVae` variables → `models/sd_vae.SDVae`, CompVis names) and
+`dinov2_state_dict` (the flax `DinoV2ViT` variables →
+`models/dinov2.DinoV2ViT`, torch-hub names); conv kernels HWIO → OIHW.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Dict, Mapping
 
 import numpy as np
@@ -192,4 +199,65 @@ def qfunction_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
     if "neural_renderer" in tree:
         out.update(renderer_state_dict(tree["neural_renderer"],
                                        prefix="neural_renderer."))
+    return out
+
+
+# flax SDVae module names → CompVis (the port's) names
+_VAE_NAMES = ((r"down_(\d+)_block_(\d+)", r"down.\1.block.\2"),
+              (r"down_(\d+)_downsample", r"down.\1.downsample.conv"),
+              (r"up_(\d+)_block_(\d+)", r"up.\1.block.\2"),
+              (r"up_(\d+)_upsample", r"up.\1.upsample.conv"),
+              (r"mid_(block_\d|attn_\d)", r"mid.\1"))
+
+
+def _flat(tree: Mapping, path=()):
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _flat(v, path + (k,))
+        else:
+            yield path + (k,), v
+
+
+def sd_vae_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """The flax `SDVae` variables ({"params": ...} or the params) →
+    models/sd_vae.SDVae state_dict."""
+    out: Dict[str, torch.Tensor] = {}
+    for path, leaf in _flat(variables.get("params", variables)):
+        names = []
+        for name in path[:-1]:
+            for pat, rep in _VAE_NAMES:
+                name = re.sub(f"^{pat}$", rep, name)
+            names.append(name)
+        prefix = ".".join(names)
+        x = _t(leaf)
+        if path[-1] == "kernel":           # HWIO → OIHW
+            out[prefix + ".weight"] = x.permute(3, 2, 0, 1).contiguous()
+        else:
+            out[prefix + (".weight" if path[-1] == "scale" else ".bias")] = x
+    return out
+
+
+def dinov2_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """The flax `DinoV2ViT` variables → models/dinov2.DinoV2ViT state_dict
+    (torch-hub names)."""
+    p = variables.get("params", variables)
+    out: Dict[str, torch.Tensor] = {
+        "cls_token": _t(p["cls_token"]), "pos_embed": _t(p["pos_embed"]),
+        "patch_embed.proj.weight":
+            _t(p["patch_embed"]["kernel"]).permute(3, 2, 0, 1).contiguous(),
+        "patch_embed.proj.bias": _t(p["patch_embed"]["bias"])}
+    if "register_tokens" in p:
+        out["register_tokens"] = _t(p["register_tokens"])
+    _norm(p["norm"], "norm.", out)
+    i = 0
+    while f"block_{i}" in p:
+        blk, pre = p[f"block_{i}"], f"blocks.{i}."
+        _norm(blk["norm1"], pre + "norm1.", out)
+        _norm(blk["norm2"], pre + "norm2.", out)
+        for name, dst in (("qkv", "attn.qkv"), ("proj", "attn.proj"),
+                          ("fc1", "mlp.fc1"), ("fc2", "mlp.fc2")):
+            _dense(blk[name], f"{pre}{dst}.", out)
+        out[pre + "ls1.gamma"] = _t(blk["ls1_gamma"])
+        out[pre + "ls2.gamma"] = _t(blk["ls2_gamma"])
+        i += 1
     return out

@@ -4,10 +4,11 @@
 
 `fill_replay` adds one transition per keyframe (start-point demo
 augmentation every N steps), `assemble_batch` loads the images, unprojects
-depth with the port's own `ops/camera.depth_to_pointcloud` and picks a
-random nerf view, and `BatchIterator` assembles batches in a background
-prefetch thread. The euler discretization of the actions is numpy in
-float64 (the JAX package calls scipy's `as_euler('xyz')`, whose angles for a
+depth with the port's own `ops/camera.depth_to_pointcloud`, picks a random
+nerf view and, given an `embed_fn` (the semantic tiers), computes the
+ground-truth embedding of that view, and `BatchIterator` assembles batches
+in a background prefetch thread. The euler discretization of the actions is
+numpy in float64 (the JAX package calls scipy's `as_euler('xyz')`, whose angles for a
 rotation matrix are these closed forms).
 """
 
@@ -162,8 +163,11 @@ def _select_view(paths_rgb, paths_depth, paths_cam, num_view_by_user: int,
 
 def assemble_batch(transitions: List[Transition], rng: np.random.Generator,
                    num_view_for_nerf: int = 20,
-                   load_nerf_targets: bool = True) -> Dict[str, np.ndarray]:
-    """Transitions → numpy batch of the agent.update schema."""
+                   load_nerf_targets: bool = True,
+                   embed_fn=None) -> Dict[str, np.ndarray]:
+    """Transitions → numpy batch of the agent.update schema. `embed_fn`
+    (numpy [B, H, W, 3] → [B, H, W, d_embed], models/foundation.py) adds
+    `gt_embed` of `nerf_target_rgb`."""
     stacked = stack_transitions(transitions)
     rgbs, pcds = [], []
     for tr in transitions:
@@ -214,22 +218,30 @@ def assemble_batch(transitions: List[Transition], rng: np.random.Generator,
             nerf_next_target_rgb=np.stack(views["nrgb"]),
             nerf_next_target_pose=np.stack(views["npose"]),
             nerf_next_target_intrinsic=np.stack(views["nintr"]))
+        if embed_fn is not None:
+            # semantic GT: frozen features + PCA (neural_rendering.py:117-166),
+            # computed here in the prefetch thread, not inside the train step
+            batch["gt_embed"] = np.asarray(embed_fn(batch["nerf_target_rgb"]),
+                                           np.float32)
     return batch
 
 
 class BatchIterator:
     """Replay → assembled batches with a background prefetch thread. A full
     queue retries the same batch, so the sampling sequence does not depend
-    on timing."""
+    on timing. `embed_fn` runs in that thread; any error there (the loader's
+    or the embedding's) reaches the consumer's `next` and ends the run."""
 
     def __init__(self, replay: TaskUniformReplay, batch_size: int,
                  seed: int = 0, num_view_for_nerf: int = 20,
-                 load_nerf_targets: bool = True, prefetch: int = 2):
+                 load_nerf_targets: bool = True, prefetch: int = 2,
+                 embed_fn=None):
         self.replay = replay
         self.batch_size = batch_size
         self.rng = np.random.default_rng(seed)
         self.num_view_for_nerf = num_view_for_nerf
         self.load_nerf_targets = load_nerf_targets
+        self.embed_fn = embed_fn
         self._q: queue.Queue = queue.Queue(maxsize=prefetch)
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._worker, daemon=True)
@@ -240,8 +252,8 @@ class BatchIterator:
             try:
                 item = assemble_batch(self.replay.sample(self.batch_size, self.rng),
                                       self.rng, self.num_view_for_nerf,
-                                      self.load_nerf_targets)
-            except Exception as e:  # surface loader errors to the consumer
+                                      self.load_nerf_targets, self.embed_fn)
+            except Exception as e:  # surface the errors to the consumer
                 self._q.put(e)
                 return
             while not self._stop.is_set():

@@ -128,18 +128,21 @@ def _safe_normalize(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 class GeneralizableGSEmbedNet(nn.Module):
     """forward(xyz [B,N,3], voxel_feat [B,V,V,V,d_latent], action [B,8])
     → dict xyz, sh [B,N,4,3], rot, scale, opacity [B,N,1], feature; with the
-    dynamic field also ["next"], the deformed frame (inputs detached)."""
+    dynamic field also ["next"], the deformed frame (inputs detached). With
+    `use_semantic_feature` the deformation field also reads the detached
+    embedding (3 channels, after the opacity)."""
 
     def __init__(self, coordinate_bounds=(-0.3, -0.5, 0.6, 0.7, 0.5, 1.6),
                  d_latent: int = 128, d_hidden: int = 512, n_blocks: int = 5,
                  combine_layer: int = 3, num_freqs: int = 6,
                  freq_factor: float = 1.5, use_dynamic_field: bool = False,
-                 use_action: bool = True, next_d_hidden: int = 512,
-                 next_n_blocks: int = 5):
+                 use_semantic_feature: bool = False, use_action: bool = True,
+                 next_d_hidden: int = 512, next_n_blocks: int = 5):
         super().__init__()
         self.bounds = tuple(coordinate_bounds)
         self.num_freqs, self.freq_factor = num_freqs, freq_factor
         self.use_dynamic_field, self.use_action = use_dynamic_field, use_action
+        self.use_semantic_feature = use_semantic_feature
         d_code = 3 + 6 * num_freqs
         d_out = sum(SPLIT_DIMS)
         self.encoder = ResnetFC(d_code, d_out, n_blocks, d_latent, d_hidden,
@@ -148,8 +151,9 @@ class GeneralizableGSEmbedNet(nn.Module):
         self.deformation = None
         if use_dynamic_field:
             # point_latent, xyz 3, sh_dc 3, sh_rest 9, rot 4, scale 3,
-            # opacity 1, z_feature, action 8
-            d_in = 3 + 3 + 9 + 4 + 3 + 1 + d_code + (8 if use_action else 0)
+            # opacity 1, (embed 3,) z_feature, action 8
+            d_in = (3 + 3 + 9 + 4 + 3 + 1 + (3 if use_semantic_feature else 0)
+                    + d_code + (8 if use_action else 0))
             self.deformation = ResnetFC(d_in, 7, next_n_blocks, d_latent,
                                         next_d_hidden,
                                         combine_layer=combine_layer)
@@ -174,7 +178,10 @@ class GeneralizableGSEmbedNet(nn.Module):
         if self.deformation is not None:
             sg = torch.Tensor.detach
             pieces = [point_latent, sg(params["xyz"]), sg(sh_dc), sg(sh_rest),
-                      sg(rot), sg(scale), sg(params["opacity"]), z_feature]
+                      sg(rot), sg(scale), sg(params["opacity"])]
+            if self.use_semantic_feature:
+                pieces.append(sg(embed))
+            pieces.append(z_feature)
             if self.use_action and action is not None:
                 pieces.append(action[:, None, :].expand(b, n, action.shape[-1]))
             delta = self.deformation(torch.cat(pieces, dim=-1))

@@ -7,8 +7,10 @@ B·T tiles. The language features are L2-normalized with `feature_norm_eps`
 before the blend. The dynamic field's warm-up gate is a Python `if` on the
 host step, as the JAX `lax.cond`: before the warm-up the next-frame branch
 is not run at all, so its backward is skipped rather than multiplied by 0.
-The semantic tier (`foundation_model_name="diffusion"`) is not ported: its
-foundation models are not; the renderer raises for it.
+With a ground-truth embedding (`gt_embed`, the semantic tiers) the rendered
+embedding image enters the loss through `loss_embed_fn` (cosine by default)
+× `lambda_embed`; with `use_semantic_feature` (`foundation_model_name=
+"diffusion"`) the deformation field also reads the detached embedding.
 """
 
 from __future__ import annotations
@@ -55,13 +57,10 @@ class NeuralRenderer(nn.Module):
                  chunk: int = 256, backend: str = "pallas",
                  feature_norm_eps: float = 1e-6):
         super().__init__()
-        if use_semantic_feature:
-            raise NotImplementedError(
-                "the semantic tier (foundation_model_name='diffusion') is not "
-                "ported: its foundation models are not")
         self.gs_model = GeneralizableGSEmbedNet(
             coordinate_bounds=coordinate_bounds, d_latent=d_latent,
-            use_dynamic_field=use_dynamic_field)
+            use_dynamic_field=use_dynamic_field,
+            use_semantic_feature=use_semantic_feature)
         self.cfg = RasterizeConfig(
             width=image_width, height=image_height, tile=tile,
             max_tiles_per_gaussian=max_tiles_per_gaussian,

@@ -4,10 +4,13 @@ Same flags and flow as the root `train.py` for one device: resolve the
 config (variant, optional YAML, dotted overrides), optionally generate
 synthetic demos, fill the replay from the stored demos, build the agent and
 run the offline runner (auto-resume under
-`framework.load_existing_weights`), one log dir per seed. Runs on the GPU;
-`--cpu` runs it on the CPU instead. The JAX entry point's `--mesh`,
-`--mesh-tile` and `--dist` (data and tile sharding, multi-host) are not
-ported, nor the semantic tier's foundation models.
+`framework.load_existing_weights`), one log dir per seed. The semantic tiers
+(`foundation_model_name` set) build the frozen feature tower on the agent's
+device and hand its GT-embed function to the batch iterator, whose prefetch
+thread computes `gt_embed` for every batch; a resume rebuilds the tower
+from its seed or its checkpoint file. Runs on the GPU; `--cpu` runs it on
+the CPU instead. The JAX entry point's `--mesh`, `--mesh-tile` and `--dist`
+(data and tile sharding, multi-host) are not ported.
 
     python -m manigaussian_tpu_torch.train --variant w_geo \
         --demo-root /data/demos --logdir logs/open_drawer \
@@ -44,10 +47,6 @@ def main(argv=None):
 
     from manigaussian_tpu_torch.utils.config_io import load_config
     cfg = load_config(args.config, args.overrides, variant=args.variant)
-    if cfg.method.neural_renderer.foundation_model_name:
-        raise NotImplementedError(
-            "the semantic tiers' foundation models are not ported; unset "
-            "method.neural_renderer.foundation_model_name")
     results = {}
     for seed in range(args.seed, args.seed + max(1, cfg.framework.seeds)):
         results[seed] = _run_seed(args, cfg, seed)
@@ -105,9 +104,19 @@ def _run_seed(args, cfg, seed):
                 demo_augmentation_every_n=cfg.method.demo_augmentation_every_n,
                 keypoint_method=cfg.method.keypoint_method)
             print(f"[replay] {task}: {n} transitions", flush=True)
+    embed_fn = None
+    nr = cfg.method.neural_renderer
+    if nr.foundation_model_name and cfg.method.use_neural_rendering:
+        from manigaussian_tpu_torch.models.foundation import \
+            create_feature_extractor
+        extractor = create_feature_extractor(
+            nr.foundation_model_name, nr.foundation_checkpoint,
+            device=agent.device)
+        embed_fn = extractor.embed_fn(nr.d_embed)
     batches = BatchIterator(replay, cfg.replay.batch_size, seed=seed,
                             num_view_for_nerf=cfg.method.num_view_for_nerf,
-                            load_nerf_targets=cfg.method.use_neural_rendering)
+                            load_nerf_targets=cfg.method.use_neural_rendering,
+                            embed_fn=embed_fn)
     try:
         return OfflineTrainRunner(agent, batches, logdir, cfg, seed=seed).start()
     finally:
