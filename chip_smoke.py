@@ -19,7 +19,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                    tiles of real frames (16,384 random Gaussians in a 128²
                    view, binned by the port's rasterizer; batch 2; the micro
                    config's K 512 / chunk 32; empty tiles; 65,536
-                   Gaussians), each bitwise repeatable; `golden`: the
+                   Gaussians at K 2048; the bench's own frame at K 8192 /
+                   chunk 512), each bitwise repeatable; `golden`: the
                    JAX package's pinned frames (tests/goldens/*.npz, read with
                    numpy) rendered through the kernel route; `conv`: the 3³
                    conv forward, dx and dW (workspace and resident scheme, each
@@ -33,6 +34,13 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                    flash kernels, SDPA and the blend kernels on the device
                    reading (the summed durations of their device work under
                    torch.profiler), the host loop's events beside it;
+                   `bench`: the port's bench twin (manigaussian_tpu_torch/
+                   bench.py: 65,536 Gaussians, 128², K 8192, chunk 512, the
+                   gradient of every input) on the kernel route: renders/s,
+                   the overflow counts, one blend forward and backward a
+                   render and nothing else, the blend pair's device time and
+                   share of a render, the rasterizer's ranges (preprocess,
+                   bin/sort, gather, blend, the backward), busy share, peak;
   3. small       — references on small inputs, the card against the CPU (the
                    plain versions, which tests/test_torch_*.py hold to the JAX
                    package): voxelize on cell boundaries, the micro config's
@@ -44,6 +52,11 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                    pipeline on the card against the CPU, then at SD v1 width
                    on a 512² image its device time, TFLOP/s and peak memory,
                    and the GT-embed function's wall time for one 128² view;
+                   `gnf_small`: the GNFACTOR_BC micro update as
+                   `small_train` (the NeRF's draws from one CPU generator);
+                   `clip_check`: the CLIP RN50 text tower at its published
+                   width from seeded random weights, card against CPU on
+                   fixed token ids, and one encode's time;
   4. slice       — the act/eval path at the full width of `config.w_geo()`
                    (V=100, 2048×512 latents, 6 layers of 8×64 heads, bf16, one
                    128² front camera), random weights from seed 0, through the
@@ -87,7 +100,20 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                    from the SD VAE) through the kernel route (flash + pallas
                    blend + pallas conv) and the plain route (xla + xla +
                    z2d), as `train_routes`, and torch.profiler over 2
-                   training steps of the kernel route.
+                   training steps of the kernel route;
+ 12. gnf_slice   — the GNFACTOR_BC baseline (`method.name=GNFACTOR_BC` on
+                   `w_geo`: the NeRF renderer at 128², 512 rays, 64 / 32 /
+                   16 samples, MLP 512 × 5) through the train entry point as
+                   `train_slice`: per step the flash kernels only, no blend
+                   and no conv; then `gnf_act` through the eval entry point;
+ 13. gnf_routes  — one GNFACTOR_BC batch through the flash and the plain
+                   attention as `train_routes`, `render_for_vis` called
+                   directly (its wall time, a finite 128² image), the
+                   profile of 2 steps; `nerf_parts`: the NeRF's forward and
+                   backward alone at that width, and its trilinear scatter.
+Every training slice also holds the recon render at step 0
+(`render_for_vis`: the policy's forward, and one blend forward with the
+splat renderer) to its launches.
 Then one JSON line of kernel records, the card's name and power limit, and
 last, the device line.
 
@@ -174,6 +200,11 @@ BLEND_OLD = {"fwd": (2, 20), "bwd": (4, 60)}
 # stays a few bf16 steps (2^-8 relative each) of the Q-values' scale.
 ROUTE_TOL = 5e-2
 
+# the named ranges of the port (agents/bc_agent.update, ops/rasterizer):
+# on the device timeline they are annotation events spanning their kernels,
+# not kernels
+RANGE_PREFIXES = ("update/", "rasterize/")
+
 
 def log(phase: str, **kw) -> None:
     print(json.dumps({"phase": phase, **kw}), flush=True)
@@ -221,7 +252,7 @@ def cuda_ms(fn, iters: int = 30, warmup: int = 5) -> float:
 def device_ms(fn, iters: int = 20, warmup: int = 3, by_kernel=None) -> float:
     """Device reading: the summed durations of the device work (kernels and
     memsets) that `iters` calls of `fn` launch, from torch.profiler's CUDA
-    trace, per call. The host's enqueue rate and the gaps between launches do
+    trace, per call (the named ranges' annotation events left out). The host's enqueue rate and the gaps between launches do
     not show. `by_kernel`, a dict, receives the time per call of each kernel
     name. A profiler session started right after another one may come back
     without its device records; such a session is run again, up to twice."""
@@ -239,7 +270,8 @@ def device_ms(fn, iters: int = 20, warmup: int = 3, by_kernel=None) -> float:
                 fn()
             torch.cuda.synchronize()
         events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA]
+                  if e.device_type == DeviceType.CUDA
+                  and not e.key.startswith(RANGE_PREFIXES)]
         total_us = sum(e.self_device_time_total for e in events)
         if total_us > 0:
             break
@@ -573,13 +605,36 @@ def blend_bound(kind: str, work: dict, nbytes: float, old_bytes: float) -> dict:
             "old_bound_ms": old * 1e3}
 
 
+def bench_frame():
+    """The bench's frame (`manigaussian_tpu_torch/bench.py`: its 65,536
+    Gaussians from seed 0, its 128² camera and its RasterizeConfig, K 8192,
+    chunk 512), binned and packed by the port's rasterizer on the card.
+    Returns ((counts, origins, attrs, livet), chunk, overflow_splats)."""
+    import torch
+    from manigaussian_tpu_torch import bench
+    from manigaussian_tpu_torch.ops import gaussian_math as gm
+    from manigaussian_tpu_torch.ops.rasterizer import pack_tiles, tile_lists
+    s = bench.make_scene(65536, torch.Generator().manual_seed(0), "cuda")
+    cfg = bench.bench_config(128)
+    cam = bench.make_camera(128, "cuda")
+    cam = type(cam)(*(f[None] for f in cam))
+    pre = gm.preprocess(s["means"][None], s["opacities"][None], cam, 128, 128,
+                        16, scales=s["scales"][None],
+                        rotations=s["rotations"][None], shs=s["shs"][None])
+    gidx, in_list, _, ov_s, _ = tile_lists(pre, cfg)
+    with torch.no_grad():
+        frame = pack_tiles(pre, s["lang"][None], gidx, in_list, cfg, 1)
+    return frame, cfg.chunk, int(ov_s)
+
+
 def blend_cases():
     """The frames of the blend checks, each (name, (counts, origins, attrs,
     livet), chunk, gaussians): the training frame (16,384 random Gaussians
     at 128², K 2048); batch 2 (two such frames, T = 128); the micro config's
     K 512 / chunk 32 (the front-most 512 slots of a frame); a 64² frame of
     2,048 Gaussians at K 256 with two tiles emptied (count 0); the 65,536
-    frame of the root bench's workload (full lists and overflow)."""
+    frame of the root bench's distributions at K 2048 (full lists and
+    overflow); the bench's own frame at its K 8192 and chunk 512."""
     import torch
     f0 = random_frame(16384, 128, 0)[:4]
     f1 = random_frame(16384, 128, 3)[:4]
@@ -597,7 +652,8 @@ def blend_cases():
              2 * 16384),
             ("micro_k512_chunk32", tuple(micro), 32, 16384),
             ("count0_64px_k256", tuple(small), 256, 2048),
-            ("frame_65536", random_frame(65536, 128, 4)[:4], 256, 65536)]
+            ("frame_65536", random_frame(65536, 128, 4)[:4], 256, 65536),
+            ("bench_k8192_chunk512", bench_frame()[0], 512, 65536)]
 
 
 def phase_blend() -> dict:
@@ -667,7 +723,7 @@ def phase_blend() -> dict:
                                  f"bwd {bwd} repeatable {fwd_rep} {bwd_rep} {extra}")
         if name == "train_16384":
             errs = {"fwd": max(x[2] for x in fwd), "bwd": bwd[2]}
-        if name in ("train_16384", "frame_65536"):
+        if name in ("train_16384", "frame_65536", "bench_k8192_chunk512"):
             frames[name] = (counts, origins, attrs, livet, gs, chunk, n_gauss)
     phase_golden()
 
@@ -753,6 +809,67 @@ def blend_times() -> dict:
         times[f"gaussians_{n}"]["peak_bytes_over_inputs"] = peak
     log("blend_times", image=[128, 128], capacity=2048, chunk=256, ms=times)
     return times
+
+
+def phase_bench(counters: dict) -> dict:
+    """The bench twin (`manigaussian_tpu_torch/bench.py`, the root bench's
+    workload: 65,536 Gaussians at 128², K 8192, chunk 512, the gradient of
+    every input) on the kernel route through its `run` (one warm-up, 30
+    timed renders), with the counts set to 0 just before and read just
+    after: one blend forward and one backward a render, nothing else. Then
+    one render's device time and the blend pair's share of it (summed kernel
+    durations under torch.profiler), the device time inside each of the
+    rasterizer's named ranges (preprocess, bin/sort, gather, blend; the
+    backward the rest), the busy share, and the peak memory of a render
+    above its inputs."""
+    import torch
+    from manigaussian_tpu_torch import bench
+
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.time()
+    res = bench.run(65536, 128, device="cuda")
+    torch.cuda.synchronize()
+    run_s = time.time() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    renders = 1 + bench.ITERS
+    expect = {k: 0 for k in counters} | {"blend_fwd": renders,
+                                         "blend_bwd": renders}
+
+    gen = torch.Generator().manual_seed(0)
+    scene = bench.make_scene(65536, gen, "cuda")
+    target = torch.rand(128, 128, 3, generator=gen).cuda()
+    camera, cfg = bench.make_camera(128, "cuda"), bench.bench_config(128)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    loss, grads, _ = bench.loss_and_grads(scene, camera, cfg, target)
+    finite = bool(torch.isfinite(loss)) and all(
+        bool(torch.isfinite(g).all()) for g in grads.values())
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del grads
+    step = lambda: float(bench.loss_and_grads(scene, camera, cfg, target)[0])
+    prof = phase_profile(step, "bench render: fwd+bwd, 65,536 Gaussians, "
+                         "128², K 8192, chunk 512", calls=5,
+                         ranges_of="rasterize/", phase="bench_profile")
+    kernels = {}
+    render_ms = device_ms(step, iters=10, warmup=2, by_kernel=kernels)
+    blend = {k: v for k, v in kernels.items() if "blend_" in k}
+    blend_ms = sum(blend.values())
+    ok = launches == expect and finite and res["value"] > 0
+    log("bench", **res, iters=bench.ITERS, run_s=run_s, launches=launches,
+        expected=expect, finite=finite, device_ms_per_render=render_ms,
+        blend_pair_device_ms=blend_ms, blend_kernels_ms=blend,
+        blend_pair_share_of_render=blend_ms / render_ms,
+        range_device_ms=prof["range_kernel_ms_per_call"],
+        wall_ms_per_render_profiled=prof["wall_ms_per_call"],
+        device_busy_share=prof["device_busy_share"],
+        peak_bytes_above_inputs=peak, ok=ok)
+    if not ok:
+        raise AssertionError(f"the bench failed its checks: {launches} "
+                             f"finite {finite}")
+    return {"launches": launches, "renders_per_s": res["value"]}
 
 
 def phase_golden() -> None:
@@ -1046,17 +1163,21 @@ def phase_small() -> None:
 def drive_eval(counters: dict, logdir: str, demos: str):
     """The port's eval entry point on the mock env from the newest checkpoint
     under `logdir`, with the counts set to 0 just before and read just after.
-    Returns (act calls, launches, the result rows, seconds); raises unless
-    every act returned a finite [1, 9] action."""
+    Returns (act calls, launches, the result rows, seconds, each act's wall
+    ms to a finished result); raises unless every act returned a finite
+    [1, 9] action."""
     import torch
     from manigaussian_tpu_torch import eval as eval_cli
     from manigaussian_tpu_torch.agents.bc_agent import ManiGaussianBCAgent
 
-    calls, shapes, finite = [0], [], []
+    calls, shapes, finite, act_ms = [0], [], [], []
     orig_act = ManiGaussianBCAgent.act
 
     def counted_act(self, observation):
+        t_start = time.perf_counter()
         res = orig_act(self, observation)
+        torch.cuda.synchronize()
+        act_ms.append((time.perf_counter() - t_start) * 1e3)
         calls[0] += 1
         shapes.append(list(res.continuous_action.shape))
         finite.append(bool(torch.isfinite(res.continuous_action).all()))
@@ -1077,7 +1198,7 @@ def drive_eval(counters: dict, logdir: str, demos: str):
         ManiGaussianBCAgent.act = orig_act
     if not (all(s == [1, 9] for s in shapes) and all(finite)):
         raise AssertionError(f"act returned {shapes}, finite {finite}")
-    return calls[0], launches, rows, eval_s
+    return calls[0], launches, rows, eval_s, act_ms
 
 
 def phase_slice(counters: dict) -> dict:
@@ -1102,7 +1223,7 @@ def phase_slice(counters: dict) -> dict:
     del agent
     setup_s = time.time() - t0
 
-    calls, launches, rows, eval_s = drive_eval(counters, logdir, demos)
+    calls, launches, rows, eval_s, act_ms = drive_eval(counters, logdir, demos)
     expected = m.transformer_depth * calls
     ok = (calls >= 2
           and launches["flash_self_attention_fwd"] == expected
@@ -1114,7 +1235,8 @@ def phase_slice(counters: dict) -> dict:
         heads=[m.latent_heads, m.latent_dim_head], dtype=m.policy_dtype,
         camera=list(cfg.rlbench.camera_resolution), params=n_params,
         act_calls=calls, launches=launches, expected_flash=expected,
-        rows=rows, setup_s=setup_s, eval_s=eval_s, ok=ok)
+        rows=rows, setup_s=setup_s, eval_s=eval_s, act_ms=act_ms,
+        act_ms_median=statistics.median(act_ms), ok=ok)
     if not ok:
         raise AssertionError("the act/eval slice failed its checks")
     return {"cfg": cfg, "logdir": logdir, "demos": demos, "launches": launches}
@@ -1184,11 +1306,14 @@ def phase_routes(cfg, logdir: str, demos: str) -> None:
                   "act on w_geo")
 
 
-def phase_profile(step, label: str, calls: int = 3) -> dict:
+def phase_profile(step, label: str, calls: int = 3,
+                  ranges_of: str = "update/", phase: str = "profile") -> dict:
     """Where one call's time goes: torch.profiler over `calls` calls of
     `step` (which ends in a device→host copy) — wall time, summed kernel
-    time (the device's busy share, one stream), the kernels and the aten ops
-    with the most device time, all per call."""
+    time (the device's busy share, one stream), the device time of the
+    kernels started inside each named range `ranges_of`* (the backward's:
+    the rest), the kernels and the aten ops with the most device time, all
+    per call."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1202,9 +1327,7 @@ def phase_profile(step, label: str, calls: int = 3) -> dict:
             step()
         wall_ms = (time.perf_counter() - t0) * 1e3 / calls
     events = prof.key_averages()
-    # named ranges (agents/bc_agent.update) show on the device timeline as
-    # annotation events spanning their kernels: they are not kernels
-    named = lambda key: key.startswith("update/")
+    named = lambda key: key.startswith(RANGE_PREFIXES)
     kernels = sorted((e for e in events if e.device_type == DeviceType.CUDA
                       and not named(e.key)),
                      key=lambda e: -e.self_device_time_total)
@@ -1220,7 +1343,8 @@ def phase_profile(step, label: str, calls: int = 3) -> dict:
     # autograd launches the backward's kernels from its own thread, outside
     # the "update/backward" range, so the backward's share is the rest
     flat = prof.events()
-    spans = [e for e in flat if named(e.name) and e.device_type == DeviceType.CUDA]
+    spans = [e for e in flat if e.name.startswith(ranges_of)
+             and e.device_type == DeviceType.CUDA]
     kern = [e.time_range for e in flat
             if e.device_type == DeviceType.CUDA and not named(e.name)]
     ranges = {}
@@ -1229,7 +1353,8 @@ def phase_profile(step, label: str, calls: int = 3) -> dict:
                      if e.time_range.start <= k.start < e.time_range.end)
         ranges[e.name] = ranges.get(e.name, 0.0) + inside / 1e3 / calls
     if ranges:
-        ranges["update/backward (the rest)"] = device_ms - sum(ranges.values())
+        ranges[ranges_of + "backward (the rest)"] = (device_ms
+                                                     - sum(ranges.values()))
 
     def rows(evs, attr, n=14):
         return [[e.key[:90], round(getattr(e, attr) / 1e3 / calls, 4),
@@ -1243,7 +1368,7 @@ def phase_profile(step, label: str, calls: int = 3) -> dict:
                blend_kernel_ms_per_call=blend_ms,
                top_kernels_ms_count=rows(kernels, "self_device_time_total"),
                top_aten_ops_device_ms_count=rows(ops, "device_time_total"))
-    log("profile", **out)
+    log(phase, **out)
     return out
 
 
@@ -1290,21 +1415,30 @@ def phase_small_train(counters: dict) -> None:
     devices), and every counter of the route advanced."""
     import torch
     from manigaussian_tpu_torch import config as C
-    from manigaussian_tpu_torch.agents.bc_agent import ManiGaussianBCAgent
+    from manigaussian_tpu_torch.agents.registry import create_agent
     from manigaussian_tpu_torch.ops.augmentation import sample_se3_draws
 
     from manigaussian_tpu_torch.models.foundation import StubFeatureExtractor
 
     conv = ("conv3d_fwd", "conv3d_dw", "conv3d_dw_resident")
-    for variant, conv_impl, idle in (("w_geo", "z2d", conv),
-                                     ("w_geo_dyna", "pallas", conv[2:]),
-                                     ("w_geo_sem_dyna", "pallas", conv[2:])):
+    blend = ("blend_fwd", "blend_bwd")
+    # (phase, variant, method, conv route, the counters that stay at 0);
+    # GNFACTOR_BC's NeRF draws its rays and samples from the CPU generator,
+    # so both devices render the same rays
+    for label, variant, method, conv_impl, idle in (
+            ("small_train", "w_geo", "ManiGaussian_BC", "z2d", conv),
+            ("small_train", "w_geo_dyna", "ManiGaussian_BC", "pallas",
+             conv[2:]),
+            ("small_train", "w_geo_sem_dyna", "ManiGaussian_BC", "pallas",
+             conv[2:]),
+            ("gnf_small", "w_geo", "GNFACTOR_BC", "z2d", conv + blend)):
         cfg = C.micro_variant(variant)
         nr = cfg.method.neural_renderer
         cfg = dataclasses.replace(cfg, method=dataclasses.replace(
-            cfg.method, input_dropout=0.0, attn_dropout=0.0,
+            cfg.method, name=method, input_dropout=0.0, attn_dropout=0.0,
             policy_conv_impl=conv_impl, neural_renderer=dataclasses.replace(
                 nr, next_mlp=dataclasses.replace(nr.next_mlp, warm_up=0))))
+        gnf = method == "GNFACTOR_BC"
         batch = micro_train_batch()
         sem = bool(nr.foundation_model_name)
         if sem:
@@ -1314,7 +1448,7 @@ def phase_small_train(counters: dict) -> None:
         draws = sample_se3_draws(torch.Generator().manual_seed(3), 2,
                                  cfg.method.aug_rpy,
                                  cfg.method.rotation_resolution)
-        agents = {dev: ManiGaussianBCAgent(cfg, device=dev, seed=0)
+        agents = {dev: create_agent(cfg, device=dev, seed=0)
                   for dev in ("cuda", "cpu")}
         before = {k: fn.launches for k, fn in counters.items()}
         metrics = {dev: {k: float(v) for k, v in a.update(
@@ -1337,16 +1471,19 @@ def phase_small_train(counters: dict) -> None:
               and all((v == 0) == (k in idle) for k, v in advanced.items())
               and (variant == "w_geo" or (metrics["cuda"]["dyna_loss"] > 0
                                           and advanced["blend_fwd"] == 2))
-              and (metrics["cuda"]["embed_loss"] != 0) == sem)
-        log("small_train", config=f"micro_variant({variant}) fp32, dropout 0, "
-            f"batch 2, conv={conv_impl}",
+              and (metrics["cuda"]["embed_loss"] != 0) == sem
+              and (not gnf or (metrics["cuda"]["dyna_loss"] == 0
+                               and metrics["cuda"]["rgb_loss"] > 0)))
+        log(label, config=f"micro_variant({variant}) {method} fp32, "
+            f"dropout 0, batch 2, conv={conv_impl}",
             losses_cuda=metrics["cuda"], loss_rel_err=loss_err,
             worst_grad_err_over_tol=worst, launches=advanced,
             tol={"loss": "1e-4·max(1,|loss|)",
                  "grad": "1e-3·max|g| per leaf + 1e-5"},
             ok=ok)
         if not ok:
-            raise AssertionError(f"the micro update ({variant}) disagrees "
+            raise AssertionError(f"the micro update ({variant}, {method}) "
+                                 "disagrees "
                                  f"between card and CPU: {loss_err} {worst} "
                                  f"{advanced}")
 
@@ -1494,6 +1631,66 @@ def phase_sem_check() -> dict:
     return {"device_ms": dev_ms, "flops": flops}
 
 
+# the RN50 text tower on the card against the CPU, fp32 (TF32 off): each
+# output within CLIP_TOL of its scale (the two devices sum the matmuls in
+# other orders)
+CLIP_TOL = 1e-4
+
+
+def phase_clip_check() -> dict:
+    """The CLIP RN50 text tower (`models/clip_text.py`) at its published
+    width (width 512, 12 layers, 8 heads, context 77, vocab 49408, embed
+    1024) from seeded random weights: the card against the CPU on fixed
+    token ids (the sentence and the token embeddings), then one encode's
+    time on the card (host clock around the call and its copy to the host,
+    and the device reading)."""
+    import copy
+    import torch
+    from manigaussian_tpu_torch.models import clip_text as ct
+
+    cpu = ct.ClipTextTransformer().init_params(
+        torch.Generator().manual_seed(0)).eval()
+    gpu = copy.deepcopy(cpu).cuda()
+    ids = torch.zeros(2, 77, dtype=torch.long)
+    # <sot> … <eot> (the highest id, which the EOT pick finds), fixed ids
+    ids[0, :6] = torch.tensor([49406, 1488, 518, 1253, 11965, 49407])
+    ids[1, :31] = torch.cat([torch.tensor([49406]),
+                             torch.arange(1000, 30000, 1000),
+                             torch.tensor([49407])])
+    with torch.no_grad():
+        want = cpu(ids)
+        got = gpu(ids.cuda())
+    errs = {name: ((g.cpu() - w).abs().max() / w.abs().max()).item()
+            for name, g, w in zip(("sentence", "tokens"), got, want)}
+
+    def encode():
+        with torch.no_grad():
+            sent, toks = gpu(ids[:1].cuda())
+        return sent.cpu(), toks.cpu()
+
+    wall = []
+    for _ in range(3):
+        encode()
+    for _ in range(10):
+        t0 = time.perf_counter()
+        encode()
+        wall.append((time.perf_counter() - t0) * 1e3)
+    dev = device_ms(lambda: gpu(ids[:1].cuda()), iters=10, warmup=2)
+    ok = (all(e <= CLIP_TOL for e in errs.values())
+          and list(got[0].shape) == [2, 1024] and list(got[1].shape) == [2, 77, 512]
+          and all(bool(torch.isfinite(t).all()) for t in got))
+    log("clip_check", tower="CLIP RN50 text, width 512, 12 layers, 8 heads, "
+        "context 77, vocab 49408, embed 1024, seeded random weights, fp32",
+        params=sum(p.numel() for p in cpu.parameters()), rel_err=errs,
+        tol=CLIP_TOL, encode_wall_ms=wall,
+        encode_wall_ms_median=statistics.median(wall),
+        encode_device_ms=dev, ok=ok)
+    if not ok:
+        raise AssertionError(f"the CLIP text tower on the card disagrees with "
+                             f"the CPU: {errs}")
+    return {"encode_ms": statistics.median(wall)}
+
+
 TASK = "open_drawer"
 TRAIN_OVERRIDES = [f"rlbench.tasks=[{TASK}]", "rlbench.demos=2",
                    "replay.use_disk=false", "framework.log_freq=1",
@@ -1516,20 +1713,38 @@ def train_config(variant: str, overrides=()):
     return load_config(None, [*TRAIN_OVERRIDES, *overrides], variant=variant)
 
 
+# GNFACTOR_BC: the NeRF renderer in place of the splat world model
+GNF_OVERRIDES = ["method.name=GNFACTOR_BC"]
+
+
 def expected_launches(m, step: int) -> dict:
     """Kernel launches of one training step at batch 1: the flash forward and
     backward once per self-attention layer; one render, and a second one of
-    the next frame once the dynamic field's warm-up gate is open; with the
-    conv kernels, the forward and dx of the two full-resolution convs and one
-    dW (workspace scheme) each."""
+    the next frame once the dynamic field's warm-up gate is open (none with
+    GNFACTOR_BC's NeRF); with the conv kernels, the forward and dx of the two
+    full-resolution convs and one dW (workspace scheme) each."""
     nr = m.neural_renderer
     renders = 2 if nr.use_dynamic_field and step >= nr.next_mlp.warm_up else 1
+    if m.name == "GNFACTOR_BC":
+        renders = 0
     pallas = m.policy_conv_impl == "pallas"
     return {"flash_self_attention_fwd": m.transformer_depth,
             "flash_self_attention_bwd": m.transformer_depth,
             "blend_fwd": renders, "blend_bwd": renders,
             "conv3d_fwd": 4 if pallas else 0, "conv3d_dw": 2 if pallas else 0,
             "conv3d_dw_resident": 0}
+
+
+def expected_vis_launches(m) -> dict:
+    """Kernel launches of one recon render (`render_for_vis`, step 0): the
+    policy's forward (the flash forward once per self-attention layer, with
+    the conv kernels the two full-resolution conv forwards) and one blend
+    forward of the splat renderer (its next frame waits for the gate)."""
+    return {"flash_self_attention_fwd": m.transformer_depth,
+            "flash_self_attention_bwd": 0,
+            "blend_fwd": 0 if m.name == "GNFACTOR_BC" else 1, "blend_bwd": 0,
+            "conv3d_fwd": 2 if m.policy_conv_impl == "pallas" else 0,
+            "conv3d_dw": 0, "conv3d_dw_resident": 0}
 
 
 def timed_calls(fn, wall_ms: list, cpu_ms: list):
@@ -1550,11 +1765,13 @@ def phase_train_slice(counters: dict, variant: str = "w_geo", overrides=(),
                       label: str = "train_slice") -> dict:
     """The training path at full width through the port's train entry point
     (main()), then a resume from its checkpoint for 2 more steps. The counts
-    are set to 0 just before the first run and read just after it. Also
-    timed: each step's wait in `next(batches)` (the prefetch thread, which
-    in the semantic tiers also runs the frozen tower) and each GT-embedding
-    call there; recorded: the feature extractors the entry point built (one
-    a run)."""
+    are set to 0 just before the first run and read just after it: the
+    steps' launches and the recon render's at step 0 (`render_for_vis`,
+    `expected_vis_launches`). Also timed: each step's wait in
+    `next(batches)` (the prefetch thread, which in the semantic tiers also
+    runs the frozen tower), each GT-embedding call there, and the recon
+    render (its image finite); recorded: the feature extractors the entry
+    point built (one a run), and whether the recon panel was written."""
     import numpy as np
     import torch
     from manigaussian_tpu_torch import train as train_cli
@@ -1567,7 +1784,7 @@ def phase_train_slice(counters: dict, variant: str = "w_geo", overrides=(),
 
     cfg = train_config(variant, overrides)
     m = cfg.method
-    logdir = os.path.join(WORK, f"train_logs_{variant}")
+    logdir = os.path.join(WORK, f"train_logs_{variant}_{m.name}")
     t0 = time.time()
     if demos is None:
         demos = os.path.join(WORK, "train_demos")
@@ -1581,7 +1798,9 @@ def phase_train_slice(counters: dict, variant: str = "w_geo", overrides=(),
     overflow, rendered = [], []     # per step, per render: (splats, gaussians)
     wait_ms, extractors = [], []
     embed_wall_ms, embed_cpu_ms = [], []   # per call, in the calling thread
+    vis = []          # per recon render: launches, wall ms, image
     orig_update = ManiGaussianBCAgent.update
+    orig_vis = ManiGaussianBCAgent.render_for_vis
     orig_render = NeuralRenderer._render
     orig_next = BatchIterator.__next__
     orig_create = foundation.create_feature_extractor
@@ -1608,6 +1827,20 @@ def phase_train_slice(counters: dict, variant: str = "w_geo", overrides=(),
         rendered.append(out[2:])
         return out
 
+    def counted_vis(self, batch):
+        before = {k: fn.launches for k, fn in counters.items()}
+        torch.cuda.synchronize()
+        t_start = time.perf_counter()
+        res = orig_vis(self, batch)
+        torch.cuda.synchronize()
+        rendered.clear()        # the recon render's frame is no step's
+        vis.append({"wall_ms": (time.perf_counter() - t_start) * 1e3,
+                    "launches": {k: fn.launches - before[k]
+                                 for k, fn in counters.items()},
+                    "shape": list(res.render_novel.shape),
+                    "finite": bool(torch.isfinite(res.render_novel).all())})
+        return res
+
     def counted_update(self, batch, generator, draws=None):
         before = {k: fn.launches for k, fn in counters.items()}
         expect.append(expected_launches(m, self.step))
@@ -1625,6 +1858,7 @@ def phase_train_slice(counters: dict, variant: str = "w_geo", overrides=(),
     argv = ["--variant", variant, "--demo-root", demos, "--logdir", logdir,
             *TRAIN_OVERRIDES, *overrides]
     ManiGaussianBCAgent.update = counted_update
+    ManiGaussianBCAgent.render_for_vis = counted_vis
     NeuralRenderer._render = watched_render
     BatchIterator.__next__ = timed_next
     foundation.create_feature_extractor = recorded_create
@@ -1639,12 +1873,13 @@ def phase_train_slice(counters: dict, variant: str = "w_geo", overrides=(),
         launches = {k: fn.launches for k, fn in counters.items()}
         peak = torch.cuda.max_memory_allocated()
         ckpts = list_checkpoints(os.path.join(logdir, "seed0"))
-        n_first = len(per_step)
+        n_first, n_vis = len(per_step), len(vis)
         train_cli.main([*argv, f"framework.training_iterations={steps + 1}",
                         "framework.load_existing_weights=true"])
         torch.cuda.synchronize()
     finally:
         ManiGaussianBCAgent.update = orig_update
+        ManiGaussianBCAgent.render_for_vis = orig_vis
         NeuralRenderer._render = orig_render
         BatchIterator.__next__ = orig_next
         foundation.create_feature_extractor = orig_create
@@ -1653,8 +1888,11 @@ def phase_train_slice(counters: dict, variant: str = "w_geo", overrides=(),
     heads = ("total_loss", "bc_loss", "trans_loss", "rot_loss", "grip_loss",
              "collision_loss", "rgb_loss", "embed_loss", "dyna_loss", "psnr",
              "overflow_splats", "overflow_gaussians")
-    dyna = m.neural_renderer.use_dynamic_field
+    dyna = (m.neural_renderer.use_dynamic_field
+            and m.name != "GNFACTOR_BC")
     sem = bool(m.neural_renderer.foundation_model_name)
+    img = m.neural_renderer.image_height, m.neural_renderer.image_width
+    panel = os.path.isfile(os.path.join(logdir, "seed0", "recon", "0.png"))
     ok = (n_first == steps and len(per_step) == steps + 2 and finite
           and per_step == expect
           and [len(o) for o in overflow] == [e["blend_fwd"] for e in expect]
@@ -1663,8 +1901,11 @@ def phase_train_slice(counters: dict, variant: str = "w_geo", overrides=(),
           and all((row["embed_loss"] != 0) == sem for row in metrics_seen)
           and len(extractors) == (2 if sem else 0)
           and ckpts == [steps - 1]
+          and n_vis == 1 and len(vis) == 1
+          and vis[0]["launches"] == expected_vis_launches(m)
+          and vis[0]["shape"] == [1, *img, 3] and vis[0]["finite"]
           and launches == {k: sum(row[k] for row in expect[:n_first])
-                           for k in counters})
+                           + vis[0]["launches"][k] for k in counters})
     warm = step_ms[2:n_first]
     log(label, config=variant, overrides=list(overrides),
         voxel=m.voxel_sizes[0],
@@ -1682,7 +1923,9 @@ def phase_train_slice(counters: dict, variant: str = "w_geo", overrides=(),
         next_batch_wait_ms=wait_ms,
         next_batch_wait_ms_median_after_2=statistics.median(
             wait_ms[2:n_first]),
-        extractors=extractors,
+        extractors=extractors, recon_render=vis,
+        recon_render_expected_launches=expected_vis_launches(m),
+        recon_panel_written=panel,
         embed_wall_ms=embed_wall_ms, embed_cpu_ms=embed_cpu_ms,
         embed_wall_ms_median=statistics.median(embed_wall_ms or [0.0]),
         embed_cpu_ms_median=statistics.median(embed_cpu_ms or [0.0]),
@@ -1691,31 +1934,32 @@ def phase_train_slice(counters: dict, variant: str = "w_geo", overrides=(),
         raise AssertionError(f"the {variant} training slice failed its checks")
     return {"launches": launches, "step_ms": statistics.median(warm),
             "demos": demos, "logdir": logdir, "cfg": cfg,
-            "extractors": extractors}
+            "extractors": extractors, "peak": peak}
 
 
 def phase_tier_slice(counters: dict, demos: str, variant: str, overrides,
                      label: str, act_label: str, steps: int = 6) -> dict:
-    """A tier with `policy_conv_impl="pallas"` at full width, the warm-up gate
-    at step 2: `steps` training steps through the train entry point, a
-    checkpoint, a resume for 2 more steps (one render a step before the
-    gate, two after it and after the resume); then `act` through the eval
-    entry point on that checkpoint (which loads it without the renderer):
-    per act, the conv forward twice and the flash forward once per
-    self-attention layer."""
+    """A tier (or GNFACTOR_BC) at full width: `steps` training steps through
+    the train entry point, a checkpoint, a resume for 2 more steps (with
+    the dynamic field and the warm-up gate at step 2: one render a step
+    before the gate, two after it and after the resume); then `act` through
+    the eval entry point on that checkpoint: per act, the flash forward once
+    per self-attention layer and, with `policy_conv_impl="pallas"`, the conv
+    forward twice."""
     tr = phase_train_slice(counters, variant, overrides, steps=steps,
                            demos=demos, label=label)
     m = tr["cfg"].method
-    calls, launches, rows, eval_s = drive_eval(
+    calls, launches, rows, eval_s, act_ms = drive_eval(
         counters, os.path.join(tr["logdir"], "seed0"), demos)
     expect = {k: 0 for k in counters} | {
         "flash_self_attention_fwd": m.transformer_depth * calls,
-        "conv3d_fwd": 2 * calls}
+        "conv3d_fwd": 2 * calls if m.policy_conv_impl == "pallas" else 0}
     ok = (calls >= 2 and launches == expect and len(rows) == 1
           and "eval_envs/return" in rows[0])
     log(act_label, config=variant, conv_impl=m.policy_conv_impl,
         act_calls=calls, launches=launches, expected=expect, rows=rows,
-        eval_s=eval_s, ok=ok)
+        eval_s=eval_s, act_ms=act_ms, act_ms_median=statistics.median(act_ms),
+        ok=ok)
     if not ok:
         raise AssertionError(f"act on the {variant} checkpoint failed its "
                              "checks")
@@ -1723,18 +1967,21 @@ def phase_tier_slice(counters: dict, demos: str, variant: str, overrides,
 
 
 def phase_train_routes(demos: str, label: str, variant: str, overrides,
-                       routes: dict, profile: str) -> None:
+                       routes: dict, profile: str, vis: bool = False) -> dict:
     """One batch from the same weights through two routes (`routes`: name →
     fields of the method config and of its renderer), dropout 0, the same
     draws (and, in the semantic tiers, the same `gt_embed`, made once by the
     tier's extractor on the card): loss within ROUTE_TOL·max(1, |loss|),
     global gradient norm within ROUTE_TOL relative; the step time
     (alternating) and the act latency of each route; then torch.profiler
-    over 2 training steps of route `profile`.
+    over 2 training steps of route `profile`. With `vis`, first the recon
+    render (`render_for_vis`) of route `profile` called directly, outside
+    the runner's catch: its wall time and a finite image of the view's
+    size.
     """
     import numpy as np
     import torch
-    from manigaussian_tpu_torch.agents.bc_agent import ManiGaussianBCAgent
+    from manigaussian_tpu_torch.agents.registry import create_agent
     from manigaussian_tpu_torch.data.language import create_language_model
     from manigaussian_tpu_torch.data.pipeline import assemble_batch, fill_replay
     from manigaussian_tpu_torch.data.replay import TaskUniformReplay
@@ -1767,9 +2014,28 @@ def phase_train_routes(demos: str, label: str, variant: str, overrides,
         m = dataclasses.replace(cfg.method, **method_kw,
                                 neural_renderer=dataclasses.replace(
                                     cfg.method.neural_renderer, **renderer_kw))
-        agents[route] = ManiGaussianBCAgent(dataclasses.replace(cfg, method=m),
-                                            device="cuda", seed=0)
+        agents[route] = create_agent(dataclasses.replace(cfg, method=m),
+                                     device="cuda", seed=0)
     first, second = routes
+    vis_rec = None
+    if vis:
+        a = agents[profile]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = a.render_for_vis(batch).render_novel
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        img = a.render_for_vis(batch).render_novel
+        torch.cuda.synchronize()
+        nr = cfg.method.neural_renderer
+        vis_rec = {"wall_ms_first": wall,
+                   "wall_ms": (time.perf_counter() - t0) * 1e3,
+                   "shape": list(img.shape),
+                   "finite": bool(torch.isfinite(img).all())}
+        if vis_rec["shape"] != [1, nr.image_height, nr.image_width, 3] or \
+                not vis_rec["finite"]:
+            raise AssertionError(f"render_for_vis returned {vis_rec}")
     loss, gnorm, heads = {}, {}, {}
     for route, a in agents.items():
         out = a.update(batch, torch.Generator().manual_seed(0), draws=draws)
@@ -1817,16 +2083,106 @@ def phase_train_routes(demos: str, label: str, variant: str, overrides,
         step_ms_median={r: statistics.median(v) for r, v in lat.items()},
         step_ms=lat,
         act_ms_median={r: statistics.median(v) for r, v in act_lat.items()},
-        ok=ok)
+        act_ms=act_lat, render_for_vis=vis_rec, ok=ok)
     if not ok:
         raise AssertionError(f"the training routes of {label} disagree: "
                              f"{loss} {gnorm}")
     kept = agents[profile]
     del agents
     torch.cuda.empty_cache()
-    phase_profile(lambda: float(kept.update(
+    prof = phase_profile(lambda: float(kept.update(
         batch, torch.Generator().manual_seed(0), draws=draws)["total_loss"]),
-        f"{variant} training step, route {profile}", calls=2)
+        f"{variant} {cfg.method.name} training step, route {profile}", calls=2)
+    return {"profile": prof, "step_ms": statistics.median(lat[profile]),
+            "act_ms": statistics.median(act_lat[profile]), "vis": vis_rec,
+            "batch": batch, "cfg": cfg}
+
+
+def phase_nerf_parts(batch, cfg) -> dict:
+    """The GNFACTOR_BC NeRF's part of a training step, alone, at full width
+    (`w_geo`: the renderer's 512 rays × (64 + 96) samples, MLP 512 × 5 in
+    fp32, the bf16 100³ × 128 voxel features with a gradient), on one
+    batch's target view: the device time of its loss forward, of forward
+    and backward with its kernels by name, and of the trilinear gather's
+    backward alone — the deterministic scatter (stable sort +
+    segment_reduce) of both passes' 8 corners a point into the volume, at
+    the corner indices the forward computed; the MLP's operations and its
+    fp32 bound."""
+    import torch
+    from manigaussian_tpu_torch.agents.qfunction import renderer_from_config
+    from manigaussian_tpu_torch.models.blocks import initialize
+    from manigaussian_tpu_torch.ops.voxelize import segment_sum
+    from manigaussian_tpu_torch.rendering import nerf_renderer as nrm
+
+    m = dataclasses.replace(cfg.method, neural_renderer=dataclasses.replace(
+        cfg.method.neural_renderer, renderer_type="nerf",
+        use_dynamic_field=False))
+    nr = m.neural_renderer
+    r = initialize(renderer_from_config(m), torch.Generator().manual_seed(0))
+    r = r.cuda().train()
+    v = m.voxel_sizes[0]
+    d0 = (torch.randn(1, v, v, v, nr.d_latent,
+                      generator=torch.Generator().manual_seed(1)) * 0.1
+          ).to(torch.bfloat16).cuda().requires_grad_()
+    t = lambda k: torch.as_tensor(batch[k][:1], device="cuda").float()
+    rgb, pose, intr = (t("nerf_target_rgb"), t("nerf_target_pose"),
+                       t("nerf_target_intrinsic"))
+    emb = rgb.new_zeros(*rgb.shape[:3], nr.d_embed)
+    gen = lambda: torch.Generator().manual_seed(0)
+
+    captured = []
+    orig = nrm._CornerGather
+
+    class Capture(orig):
+        @staticmethod
+        def forward(ctx, table, idx):
+            captured.append(idx)
+            return orig.forward(ctx, table, idx)
+
+    nrm._CornerGather = Capture
+    try:
+        with torch.no_grad():
+            r(d0, rgb, pose, intr, emb, gen())
+    finally:
+        nrm._CornerGather = orig
+
+    def fwd():
+        with torch.no_grad():
+            return r(d0, rgb, pose, intr, emb, gen()).loss
+
+    def fwd_bwd():
+        d0.grad = None
+        r.zero_grad(set_to_none=True)
+        r(d0, rgb, pose, intr, emb, gen()).loss.backward()
+
+    n_vox = d0.shape[0] * v ** 3
+    rows = [torch.randn(i.numel(), nr.d_latent, device="cuda") for i in captured]
+    scatter = lambda: [segment_sum(g, i, n_vox) for g, i in zip(rows, captured)]
+    kernels = {}
+    fb_ms = device_ms(fwd_bwd, iters=5, warmup=2, by_kernel=kernels)
+    fwd_ms = device_ms(fwd, iters=5, warmup=2)
+    scatter_ms = device_ms(scatter, iters=5, warmup=2)
+    mlp = r.nerf.mlp
+    macs = sum(p.numel() for n_, p in mlp.named_parameters()
+               if n_.endswith("weight"))
+    # the coarse pass's samples, then the fine pass's (coarse ∪ fine)
+    points = nr.ray_chunk_size * (2 * nr.n_coarse + nr.n_fine)
+    mlp_flops = 3 * 2 * macs * points            # forward + two backward GEMMs
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
+    out = dict(rays=nr.ray_chunk_size, samples=[nr.n_coarse, nr.n_fine,
+                                               nr.n_fine_depth],
+               points=points, corner_rows=[int(i.numel()) for i in captured],
+               voxels=n_vox, channels=nr.d_latent,
+               mlp=[mlp.lin_in.weight.shape[0], len(mlp.blocks)],
+               forward_device_ms=fwd_ms, fwd_bwd_device_ms=fb_ms,
+               trilinear_scatter_device_ms=scatter_ms,
+               mlp_tflop_fwd_bwd=mlp_flops / 1e12,
+               mlp_fp32_bound_ms=mlp_flops / PEAK_FLOPS["float32"] * 1e3,
+               top_kernels_ms=[[k, round(x, 4)] for k, x in top])
+    log("nerf_parts", **out)
+    del r, d0, rows, captured
+    torch.cuda.empty_cache()
+    return out
 
 
 def embed_ab(rounds: int = 3, steps: int = 5) -> dict:
@@ -1990,9 +2346,11 @@ def main(argv) -> int:
     t_start = time.time()
     phase_build()
     records = {**phase_flash(), **phase_blend(), **phase_conv()}
+    bn = phase_bench(counters)
     phase_small()
     phase_small_train(counters)
     phase_sem_check()
+    phase_clip_check()
     sl = phase_slice(counters)
     phase_routes(sl["cfg"], sl["logdir"], sl["demos"])
     tr = phase_train_slice(counters)
@@ -2019,17 +2377,28 @@ def main(argv) -> int:
                     {"backend": "pallas"}),
          "plain": ({"policy_attn_impl": "xla", "policy_conv_impl": "z2d"},
                    {"backend": "xla"})}, "kernel")
-    # launches on the main paths, each read just after its run: this slice's
-    # training run (`launches`: the full model, w_geo_sem_dyna), and every
-    # path by name. A kernel of a path that the path never launched fails
-    # the run; the resident dW scheme is on no path (the backward uses the
-    # workspace scheme) and is held to its plain version and timed in phase
-    # `conv` only.
+    gn = phase_tier_slice(counters, tr["demos"], "w_geo", GNF_OVERRIDES,
+                          "gnf_slice", "gnf_act")
+    gr = phase_train_routes(
+        tr["demos"], "gnf_routes", "w_geo", GNF_OVERRIDES,
+        {"kernel": ({"policy_attn_impl": "flash"}, {}),
+         "plain": ({"policy_attn_impl": "xla"}, {})}, "kernel", vis=True)
+    phase_nerf_parts(gr["batch"], gr["cfg"])
+    # launches on the main paths, each read just after its run: the full
+    # model's training run (`launches`: w_geo_sem_dyna, the one path that
+    # launches every kernel of the paths), and every path by name, the bench
+    # and GNFACTOR_BC's among them (each phase holds its path to its
+    # expected counts). A kernel of a path that the path never launched
+    # fails the run; the resident dW scheme is on no path (the backward uses
+    # the workspace scheme) and is held to its plain version and timed in
+    # phase `conv` only.
     paths = {"act_w_geo": sl["launches"], "train_w_geo": tr["launches"],
              "train_w_geo_dyna": dy["launches"],
              "act_w_geo_dyna": dy["act_launches"],
              "train_w_geo_sem_dyna": se["launches"],
-             "act_w_geo_sem_dyna": se["act_launches"]}
+             "act_w_geo_sem_dyna": se["act_launches"],
+             "bench": bn["launches"], "train_gnfactor_bc": gn["launches"],
+             "act_gnfactor_bc": gn["act_launches"]}
     off_path = {"conv3d_dw_resident"}
     for name, rec in records.items():
         rec["launches"] = se["launches"][name]

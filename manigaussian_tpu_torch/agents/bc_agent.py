@@ -2,12 +2,13 @@
 greedy policy `act`.
 
 Port of `manigaussian_tpu/agents/bc_agent.py`: the optimizer construction
-(:52-72), `normalize_rgb` (:75-77), `update` (:126-206) and `act`
-(:209-233), i.e. reference qattention:654-920 and 1063-1158 plus the stack
-agent's continuous-action assembly. The JAX agent is functional (params and
-optimizer state are passed in and returned); here the agent owns its
-QFunction module, its LAMB state and its step count. Weights come from a
-seed (`torch.Generator`), a checkpoint, or `convert.py`.
+(:52-72), `normalize_rgb` (:75-77), `update` (:126-206), `act` (:209-233)
+and `render_for_vis` (:236-254), i.e. reference qattention:654-1010 and
+1063-1158 plus the stack agent's continuous-action assembly. The JAX agent
+is functional (params and optimizer state are passed in and returned);
+here the agent owns its QFunction module, its LAMB state and its step
+count. Weights come from a seed (`torch.Generator`), a checkpoint, or
+`convert.py`.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from manigaussian_tpu_torch.ops.augmentation import (SE3Draws,
                                                      apply_se3_augmentation,
                                                      sample_se3_draws)
 from manigaussian_tpu_torch.ops.rotation import discrete_euler_to_quaternion
+from manigaussian_tpu_torch.rendering.neural_renderer import RenderResult
 from manigaussian_tpu_torch.utils.device import DeviceLike, resolve_device
 from manigaussian_tpu_torch.utils.optimizers import Lamb, warmup_cosine_schedule
 
@@ -183,6 +185,29 @@ class ManiGaussianBCAgent:
                                 device=self.device) for k in OBS_KEYS}
         return self.qfn(normalize_rgb(o["rgb"]), o["pcd"], o["low_dim_state"],
                         o["lang_goal_emb"], o["lang_token_embs"], self.bounds)
+
+    @torch.no_grad()
+    def render_for_vis(self, batch: Dict) -> Optional[RenderResult]:
+        """The inference-mode novel-view render of the recon panels
+        (QFunction.render, qattention:289-359): the batch's first target
+        view, with no target image, at step 0, deterministic. Returns the
+        RenderResult (the NeRF renderer: the full image of sample 0)."""
+        keys = OBS_KEYS + ("nerf_target_pose", "nerf_target_intrinsic",
+                           "nerf_next_target_pose",
+                           "nerf_next_target_intrinsic", "action")
+        b = {k: torch.as_tensor(np.asarray(batch[k]) if not torch.is_tensor(
+            batch[k]) else batch[k], device=self.device).float()
+             for k in keys if k in batch}
+        q = self.qfn(normalize_rgb(b["rgb"]), b["pcd"], b["low_dim_state"],
+                     b["lang_goal_emb"], b["lang_token_embs"], self.bounds,
+                     use_neural_rendering=True,
+                     nerf_target_pose=b.get("nerf_target_pose"),
+                     nerf_target_intrinsic=b.get("nerf_target_intrinsic"),
+                     nerf_next_target_pose=b.get("nerf_next_target_pose"),
+                     nerf_next_target_intrinsic=b.get(
+                         "nerf_next_target_intrinsic"),
+                     action=b.get("action"), step=0, deterministic=True)
+        return q.render_result
 
     @torch.no_grad()
     def act(self, observation: Dict) -> ActResult:

@@ -3,10 +3,10 @@ rendering, and the argmax decode.
 
 Port of `manigaussian_tpu/agents/qfunction.py`: `build_voxel_grid` (:44-54),
 the perceiver call (:150-156), the Gaussian renderer branch (:114-129,
-164-175) and `choose_highest_action` (:218-237). One module owns the policy
-(`qnet`) and, when the config renders, the renderer (`neural_renderer`), as
-the JAX parameter tree does. The voxel grid carries no gradient
-(`qfunction.py:151`). The GNFactor NeRF branch is not ported.
+164-175), the GNFactor NeRF branch (:97-112, 158-216) and
+`choose_highest_action` (:218-237). One module owns the policy (`qnet`) and,
+when the config renders, the renderer (`neural_renderer`), as the JAX
+parameter tree does. The voxel grid carries no gradient (`qfunction.py:151`).
 """
 
 from __future__ import annotations
@@ -19,6 +19,8 @@ from torch import nn
 from manigaussian_tpu_torch.config import MethodConfig
 from manigaussian_tpu_torch.models.perceiver import PerceiverVoxelLangEncoder
 from manigaussian_tpu_torch.ops.voxelize import voxelize
+from manigaussian_tpu_torch.rendering.nerf_renderer import \
+    GNFactorNeRFRenderer
 from manigaussian_tpu_torch.rendering.neural_renderer import (NeuralRenderer,
                                                               RenderLosses,
                                                               RenderResult)
@@ -75,13 +77,24 @@ def perceiver_from_config(m: MethodConfig) -> PerceiverVoxelLangEncoder:
         no_language=m.no_language)
 
 
-def renderer_from_config(m: MethodConfig) -> NeuralRenderer:
-    """The JAX QFunction._renderer field mapping."""
+def renderer_from_config(m: MethodConfig):
+    """The JAX QFunction._renderer field mapping, or `_nerf_renderer`'s
+    for `renderer_type == "nerf"` (whose MLP reads `neural_renderer.mlp`;
+    the Gaussian regressor does not)."""
     r = m.neural_renderer
+    if r.renderer_type == "nerf":
+        return GNFactorNeRFRenderer(
+            coordinate_bounds=tuple(r.coordinate_bounds),
+            image_width=r.image_width, image_height=r.image_height,
+            z_near=r.znear, z_far=r.zfar, n_coarse=r.n_coarse,
+            n_fine=r.n_fine, n_fine_depth=r.n_fine_depth,
+            depth_std=r.depth_std, ray_chunk_size=r.ray_chunk_size,
+            d_latent=r.d_latent, d_embed=r.d_embed, d_hidden=r.mlp.d_hidden,
+            n_blocks=r.mlp.n_blocks, combine_layer=r.mlp.combine_layer,
+            lambda_rgb=r.lambda_rgb, lambda_embed=r.lambda_embed,
+            noise_std=r.noise_std, white_bkgd=r.white_bkgd)
     if r.renderer_type != "gaussian":
-        raise NotImplementedError(
-            f"renderer_type={r.renderer_type!r} (the GNFactor NeRF renderer) "
-            "is not ported")
+        raise ValueError(f"unknown renderer_type {r.renderer_type!r}")
     return NeuralRenderer(
         coordinate_bounds=tuple(r.coordinate_bounds),
         image_width=r.image_width, image_height=r.image_height,
@@ -119,7 +132,12 @@ class QFunction(nn.Module):
             voxel_grid, proprio, lang_goal_emb, lang_token_embs,
             deterministic=deterministic, generator=generator)
         render_losses = render_result = None
-        if use_neural_rendering and self.neural_renderer is not None:
+        if (use_neural_rendering
+                and isinstance(self.neural_renderer, GNFactorNeRFRenderer)):
+            render_losses, render_result = self._nerf_branch(
+                d0, nerf_target_rgb, nerf_target_pose, nerf_target_intrinsic,
+                gt_embed, deterministic, generator)
+        elif use_neural_rendering and self.neural_renderer is not None:
             # front camera only (qattention:252-258)
             front_pcd = pcd[:, 0].reshape(pcd.shape[0], -1, 3)
             render_losses, render_result = self.neural_renderer(
@@ -132,6 +150,47 @@ class QFunction(nn.Module):
                 training=nerf_target_rgb is not None)
         return QOutput(q_trans, q_rot_grip, q_coll, voxel_grid,
                        render_losses, render_result)
+
+    def _nerf_branch(self, d0, gt_rgb, gt_pose, gt_intrinsic, gt_embed,
+                     deterministic: bool, generator):
+        """The GNFactor auxiliary loss: volume-render a random ray chunk
+        against the target view, returned as the splat path's RenderLosses
+        (zero dyna loss and overflow counts). Without a target image but with
+        its pose, the full image for visualization (draws from a generator
+        seeded 0, as JAX's PRNGKey(0)). Training draws come from `generator`;
+        a deterministic call takes them from a generator seeded 0. Without
+        `gt_embed` a zero embedding of `d_embed` channels stands in and the
+        embed terms stay out of the loss."""
+        renderer = self.neural_renderer
+        if gt_rgb is None:
+            if gt_pose is None:
+                return None, None
+            rgb, _ = renderer.render_image(d0[0], gt_pose[0], gt_intrinsic[0],
+                                           torch.Generator().manual_seed(0))
+            return None, RenderResult(render_novel=rgb[None],
+                                      next_render_novel=None,
+                                      render_embed=None)
+        if deterministic:
+            generator = torch.Generator().manual_seed(0)
+        elif generator is None:
+            raise ValueError("the NeRF's training draws need a generator")
+        have_embed = gt_embed is not None
+        if not have_embed:
+            gt_embed = gt_rgb.new_zeros(*gt_rgb.shape[:3], renderer.d_embed)
+        nl = renderer(d0, gt_rgb, gt_pose, gt_intrinsic, gt_embed, generator,
+                      training=not deterministic)
+        zero = nl.loss.new_zeros(())
+        loss_rgb = nl.loss_rgb_coarse + nl.loss_rgb_fine
+        losses = RenderLosses(
+            loss=nl.loss if have_embed else loss_rgb, loss_rgb=loss_rgb,
+            loss_embed=(nl.loss_embed_coarse + nl.loss_embed_fine
+                        if have_embed else zero),
+            loss_dyna=zero, psnr=nl.psnr,
+            overflow_splats=torch.zeros((), dtype=torch.int32,
+                                        device=zero.device),
+            overflow_gaussians=torch.zeros((), dtype=torch.int32,
+                                           device=zero.device))
+        return losses, None
 
 
 def choose_highest_action(q_trans: torch.Tensor, q_rot_grip: torch.Tensor,

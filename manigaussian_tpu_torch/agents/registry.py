@@ -1,9 +1,10 @@
 """Agent registry keyed by method name (port of
-`manigaussian_tpu/agents/registry.py:26-35`).
+`manigaussian_tpu/agents/registry.py:26-45`).
 
-ManiGaussian_BC and PERACT_BC share the policy and so the same `act`;
-PERACT_BC is the agent without the neural renderer. GNFACTOR_BC (the NeRF
-baseline) arrives with the renderers.
+ManiGaussian_BC, PERACT_BC and GNFACTOR_BC share the policy and so the same
+`act`: PERACT_BC is the agent without the neural renderer, GNFACTOR_BC the
+agent with the generalizable-NeRF renderer (`renderer_type="nerf"`) in place
+of the splat world model and no dynamic field.
 """
 
 from __future__ import annotations
@@ -26,6 +27,11 @@ def create_agent(cfg: ManiGaussianConfig, device: DeviceLike = None,
                                             use_neural_rendering=False))
         return ManiGaussianBCAgent(cfg, device=device, seed=seed)
     if name == "GNFACTOR_BC":
-        raise NotImplementedError(
-            "GNFACTOR_BC needs the NeRF renderer, which is not ported yet")
+        nr = dataclasses.replace(cfg.method.neural_renderer,
+                                 renderer_type="nerf", use_dynamic_field=False)
+        cfg = dataclasses.replace(
+            cfg, method=dataclasses.replace(cfg.method,
+                                            use_neural_rendering=True,
+                                            neural_renderer=nr))
+        return ManiGaussianBCAgent(cfg, device=device, seed=seed)
     raise ValueError(f"Method {name} does not exist.")

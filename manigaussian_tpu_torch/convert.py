@@ -16,7 +16,8 @@ The `neural_renderer` subtree of the Gaussian renderer maps onto the
 renderer's modules (`gs_model/encoder`, `gs_model/regresser`,
 `gs_model/deformation`, whose first layer is 3 inputs wider in the semantic
 tiers), so a whole JAX `TrainState.params` tree loads; the GNFactor NeRF
-renderer is not ported.
+renderer's tree (`neural_renderer/nerf/mlp/...`, a ResnetFC) maps onto
+`rendering/nerf_renderer.GNFactorNeRFRenderer`'s `nerf.mlp`.
 
 The frozen towers of the semantic tiers: `sd_vae_state_dict` (the flax
 `SDVae` variables → `models/sd_vae.SDVae`, CompVis names) and
@@ -180,8 +181,12 @@ def _resnetfc(tree: Mapping, prefix: str, out: Dict) -> None:
 
 def renderer_state_dict(tree: Mapping,
                         prefix: str = "") -> Dict[str, torch.Tensor]:
-    """The JAX `NeuralRenderer` tree → NeuralRenderer state_dict."""
+    """The JAX `NeuralRenderer` tree → NeuralRenderer state_dict, or the
+    `GNFactorNeRFRenderer` tree → GNFactorNeRFRenderer state_dict."""
     out: Dict[str, torch.Tensor] = {}
+    if "nerf" in tree:
+        _resnetfc(tree["nerf"]["mlp"], prefix + "nerf.mlp.", out)
+        return out
     gs = tree["gs_model"]
     _resnetfc(gs["encoder"], prefix + "gs_model.encoder.", out)
     _dense(gs["regresser"]["Dense_0"], prefix + "gs_model.regresser.", out)

@@ -21,6 +21,10 @@ route: the blend's plain PyTorch version on any device.
 Static capacities as in JAX: splats past `tile_capacity` in a tile are
 dropped (`overflow_splats`), rect slots past `max_tiles_per_gaussian` too
 (`overflow_gaussians`); both are returned.
+
+The forward's four stages are named ranges for torch.profiler
+("rasterize/preprocess", "rasterize/bin_sort", "rasterize/gather",
+"rasterize/blend"); the backward runs on autograd's thread, outside them.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+from torch.profiler import record_function
 
 from manigaussian_tpu_torch.ops import gaussian_math as gm
 from manigaussian_tpu_torch.ops.blend import (blend_tiles,
@@ -160,13 +165,16 @@ def _blend(pre: gm.ProjectedGaussians, lang: torch.Tensor, gidx, in_list,
            cfg: RasterizeConfig, bg: torch.Tensor, b: int):
     """Blend the packed tiles. Returns patches (color [B·T, P, 3],
     lang [B·T, P, F], final_t [B·T, P])."""
-    counts, origins, attrs, livet = pack_tiles(pre, lang, gidx, in_list, cfg, b)
+    with record_function("rasterize/gather"):
+        counts, origins, attrs, livet = pack_tiles(pre, lang, gidx, in_list,
+                                                   cfg, b)
     blend = blend_tiles if cfg.backend == "pallas" else blend_tiles_reference
-    color_t, lang_t, logtf = blend(counts, origins, attrs, livet,
-                                   lang.shape[-1], cfg.tile,
-                                   min(cfg.chunk, gidx.shape[1]))
-    final_t = torch.exp(logtf[:, 0, :])
-    color = color_t.transpose(1, 2) + final_t[..., None] * bg
+    with record_function("rasterize/blend"):
+        color_t, lang_t, logtf = blend(counts, origins, attrs, livet,
+                                       lang.shape[-1], cfg.tile,
+                                       min(cfg.chunk, gidx.shape[1]))
+        final_t = torch.exp(logtf[:, 0, :])
+        color = color_t.transpose(1, 2) + final_t[..., None] * bg
     return color, lang_t.transpose(1, 2), final_t
 
 
@@ -180,10 +188,13 @@ def rasterize_batch(means3d: torch.Tensor, opacities: torch.Tensor, camera,
     if cfg.backend not in ("pallas", "xla"):
         raise ValueError(f"unknown rasterizer backend {cfg.backend!r}")
     b, n, _ = means3d.shape
-    pre = gm.preprocess(means3d, opacities, camera, cfg.width, cfg.height,
-                        cfg.tile, scales=scales, rotations=rotations, shs=shs,
-                        sh_degree=cfg.sh_degree, scale_modifier=scale_modifier)
-    gidx, in_list, _, overflow_s, overflow_g = tile_lists(pre, cfg)
+    with record_function("rasterize/preprocess"):
+        pre = gm.preprocess(means3d, opacities, camera, cfg.width, cfg.height,
+                            cfg.tile, scales=scales, rotations=rotations,
+                            shs=shs, sh_degree=cfg.sh_degree,
+                            scale_modifier=scale_modifier)
+    with record_function("rasterize/bin_sort"):
+        gidx, in_list, _, overflow_s, overflow_g = tile_lists(pre, cfg)
     lang = (means3d.new_zeros(b, n, 3) if language_features is None
             else language_features)
     bg = torch.as_tensor(bg_color, dtype=torch.float32, device=means3d.device)

@@ -89,7 +89,7 @@ def _run_seed(args, cfg, seed):
     lang = create_language_model(
         cfg.method.language_model,
         checkpoint_dir=cfg.method.language_model_checkpoint,
-        cache_dir=os.path.join(logdir, "lang_cache"))
+        cache_dir=os.path.join(logdir, "lang_cache"), device=agent.device)
     replay = TaskUniformReplay(
         save_dir=cfg.replay.path if cfg.replay.use_disk else None)
     replay.reload_from_disk()

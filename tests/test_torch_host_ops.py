@@ -76,7 +76,9 @@ def test_language_stub_is_identical(tmp_path):
     assert isinstance(cached, CachedLanguageModel)
     np.testing.assert_array_equal(cached.encode(text)[1],
                                   JStub().encode(text)[1])
-    with pytest.raises(NotImplementedError):
+    # a checkpoint is never passed over for the stub: a directory goes to
+    # the transformers provider, which finds no tokenizer in an empty one
+    with pytest.raises((OSError, TypeError, ValueError)):
         create_language_model("CLIP", checkpoint_dir=str(tmp_path))
 
 
