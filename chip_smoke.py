@@ -24,9 +24,13 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                    JAX package's pinned frames (tests/goldens/*.npz, read with
                    numpy) rendered through the kernel route; `conv`: the 3³
                    conv forward, dx and dW (workspace and resident scheme, each
-                   bitwise repeatable, and against each other) in fp32 and
+                   bitwise repeatable, and against each other; the resident
+                   scheme in bf16 also at the widest cluster the card holds,
+                   where small shapes leave CTAs without a step) in fp32 and
                    bf16 at ragged shapes and at the policy's two 100³ convs,
-                   with ptxas's registers and spill of the two wgmma kernels.
+                   the resident scheme's plan (cluster size, clusters at
+                   once, waves), with ptxas's registers and spill of the
+                   three wgmma kernels.
                    Then time each kernel (the flash forward without and with
                    dropout, SDPA beside each at the same dropout rate), its
                    plain version and the PyTorch call that computes the same
@@ -121,7 +125,12 @@ last, the device line.
 flash kernels' times (`flash_times`, through the public entry point): run
 from the root of two checkouts in turn, it times both with one yardstick.
 `--blend-times` does the same for the tile blend pair (`blend_times`,
-through `blend_tiles` and autograd). `--embed-ab` builds the kernels and
+through `blend_tiles` and autograd); `--conv-times` for the two dW
+schemes beside conv3d_weight (`conv_times`, through `conv3d_dw_resident` and
+`conv3d_dw_workspace`). `--gnf-steps` runs GNFACTOR_BC's first two steps
+at full width on the card and on the CPU from the same weights and batch
+(`gnf_steps`: loss heads, LAMB's trust ratios by leaf, the first update
+split by leaf group). `--embed-ab` builds the kernels and
 compares where the SD VAE's ground-truth embedding runs in `w_geo_sem_dyna`
 training (`embed_ab`: its prefetch thread on a stream of its own or on the
 default stream, the main thread, or no tower).
@@ -954,24 +963,36 @@ def phase_conv() -> dict:
     taps flipped and Ci/Co swapped) and dW by the workspace and the resident
     scheme, against the plain versions on the card, at small ragged shapes in
     fp32 and bf16 (among them a batch of 2 whose voxel tiles straddle the
-    samples at 128 → 128 channels, and 128 ↔ 256 channels for a forward and a
-    dx over two 128-wide tiles) and at the policy's two 100³ convs in bf16;
-    the two dW schemes, two independent sums, against each other, and each
-    bitwise equal across two runs; ptxas's registers and spill of the two
-    wgmma kernels (no spill allowed); then the time of each kernel, of its
-    plain version and of the library call (F.conv3d, conv3d_weight: a
-    yardstick only) beside its bound."""
+    samples at 128 → 128 channels, 128 ↔ 256 channels for a forward and a
+    dx over two 128-wide tiles, Ci and Co off the tile widths, and 27 voxels
+    whose one step leaves all but one CTA of a cluster without a step) and
+    at the policy's two 100³ convs in bf16; the two dW schemes, two
+    independent sums, against each other, and each bitwise equal across two
+    runs; in bf16 the resident scheme also at the largest cluster the card
+    holds, where the small shapes give CTAs no step; the resident scheme's
+    plan (cluster size, clusters at once, waves) at each shape; ptxas's
+    registers and spill of the three wgmma kernels (no spill, no serialized
+    wgmma); then the time of each kernel, of its plain version and of the
+    library call (F.conv3d, conv3d_weight: a yardstick only) beside its
+    bound."""
     import torch
     import torch.nn.functional as F
     from manigaussian_tpu_torch.ops.conv3d import (conv3d_dw_reference,
                                                    conv3d_dw_resident,
+                                                   conv3d_dw_resident_cluster,
                                                    conv3d_dw_workspace,
                                                    conv3d_forward,
-                                                   conv3d_same_reference)
+                                                   conv3d_same_reference,
+                                                   dw_resident_plan,
+                                                   resident_clusters)
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     rel = lambda got, ref: ((got.float() - ref).abs().max()
                             / max(1.0, ref.abs().max().item())).item()
+    table = resident_clusters(torch.device("cuda"))
+    widest = max(s for s, held in table.items() if held > 0)
+    log("dw_resident_clusters", clusters_at_once_by_size=table,
+        widest=widest)
 
     def check(label, dtype, b, d, h, w, ci, co):
         dt = getattr(torch, dtype)
@@ -986,37 +1007,50 @@ def phase_conv() -> dict:
                           conv3d_same_reference(dy, w_flip))}
         ref = conv3d_dw_reference(x, dy)
         same, got = {}, {}
-        for name, fn in (("dw_workspace", conv3d_dw_workspace),
-                         ("dw_resident", conv3d_dw_resident)):
+        dw_fns = [("dw_workspace", conv3d_dw_workspace),
+                  ("dw_resident", conv3d_dw_resident)]
+        plan = None
+        if dtype == "bfloat16":
+            plan = dw_resident_plan(b * d * h * w, ci, co, table)
+            dw_fns.append((f"dw_resident_cluster_{widest}",
+                           lambda x, dy: conv3d_dw_resident_cluster(x, dy,
+                                                                    widest)))
+        for name, fn in dw_fns:
             got[name] = fn(x, dy)
             errs[name] = rel(got[name], ref)
             same[name] = torch.equal(fn(x, dy), got[name])
         # kernel against kernel: each is within tol of the plain version
-        errs["dw_workspace_vs_resident"] = rel(got["dw_workspace"],
-                                               got["dw_resident"])
+        for name in got:
+            if name != "dw_workspace":
+                errs[f"dw_workspace_vs_{name[3:]}"] = rel(got["dw_workspace"],
+                                                         got[name])
         torch.cuda.synchronize()
         tol = CONV_TOL[dtype]
         ok = (errs["fwd"] <= tol["fwd"] and errs["dx"] <= tol["fwd"]
-              and errs["dw_workspace"] <= tol["dw"]
-              and errs["dw_resident"] <= tol["dw"]
-              and errs["dw_workspace_vs_resident"] <= 2 * tol["dw"]
+              and all(errs[n] <= tol["dw"] for n in got)
+              and all(v <= 2 * tol["dw"] for k, v in errs.items()
+                      if k.startswith("dw_workspace_vs_"))
               and all(same.values()))
         log("kernel_check", kernel="conv3d", conv=label, dtype=dtype,
             shape=[b, d, h, w, ci], co=co, compared_with="the plain version",
-            err_over_scale=errs, tol=tol, bitwise_repeatable=same, ok=ok)
+            err_over_scale=errs, tol=tol, bitwise_repeatable=same,
+            resident_plan=plan, ok=ok)
         if not ok:
             raise AssertionError(f"conv kernels disagree ({label}, {dtype}): "
                                  f"{errs} {same}")
-        return x, wm, dy, errs, y_scale, max(1.0, ref.abs().max().item())
+        return x, wm, dy, errs, y_scale, max(1.0, ref.abs().max().item()), plan
 
     for shape in ((1, 5, 6, 7, 8, 16), (2, 9, 10, 11, 24, 40),
                   (1, 12, 13, 14, 72, 136), (2, 12, 13, 14, 128, 128),
-                  (1, 6, 7, 9, 128, 256), (1, 6, 7, 9, 256, 128)):
+                  (1, 6, 7, 9, 128, 256), (1, 6, 7, 9, 256, 128),
+                  (1, 3, 3, 3, 64, 128)):
         for dtype in ("float32", "bfloat16"):
             check("ragged", dtype, *shape)
 
     build = {"conv3d_fwd": ptxas_report("conv3d", "conv3d_fwd_wgmma_kernel"),
-             "conv3d_dw": ptxas_report("conv3d", "conv3d_dw_wgmma_kernel")}
+             "conv3d_dw": ptxas_report("conv3d", "conv3d_dw_wgmma_kernel"),
+             "conv3d_dw_resident": ptxas_report("conv3d",
+                                                "conv3d_dw_resident_kernel")}
     log("kernel_build", source="manigaussian_tpu_torch/csrc/conv3d.cu", **build)
     if any(b["spill_bytes"] or b["wgmma_serialized"] for b in build.values()):
         raise AssertionError(f"the wgmma conv kernels spill or serialize: {build}")
@@ -1024,8 +1058,10 @@ def phase_conv() -> dict:
     records = {}
     for label, ci, co in (("final 256→128", 256, 128),
                           ("up0 post-resize 128→128", 128, 128)):
-        x, wm, dy, errs, y_scale, dw_scale = check(label, "bfloat16", 1, 100,
-                                                   100, 100, ci, co)
+        x, wm, dy, errs, y_scale, dw_scale, plan = check(
+            label, "bfloat16", 1, 100, 100, 100, ci, co)
+        log("dw_resident_plan", conv=label, shape=[1, 100, 100, 100, ci],
+            co=co, **plan)
         xl, gl = (t.permute(0, 4, 1, 2, 3) for t in (x, dy))   # NCDHW views
         wl = wm.reshape(3, 3, 3, ci, co).permute(4, 3, 0, 1, 2).contiguous(
             memory_format=torch.channels_last_3d)
@@ -1054,14 +1090,22 @@ def phase_conv() -> dict:
             times = {key: cuda_ms(fn, iters=2 if key == "plain_ms" else 10,
                                   warmup=1 if key == "plain_ms" else 3)
                      for key, fn in fns.items()}
+            # the device reading beside the host loop's: summed kernel
+            # durations, without the gaps between launches
+            times["device_ms"] = device_ms(fns["ms"], iters=10, warmup=2)
+            times["library_device_ms"] = device_ms(fns["library_ms"],
+                                                   iters=10, warmup=2)
             bound_ms, bound_by = bound(flops, nbytes[kind], PEAK_FLOPS["bfloat16"])
+            extra = ({k: plan[k] for k in ("cluster", "clusters_at_once",
+                                            "waves", "steps_per_cta")}
+                     if name == "conv3d_dw_resident" else {})
             log("kernel_time", kernel=name, conv=label,
                 shape=[1, 100, 100, 100, ci], co=co, dtype="bfloat16",
                 flops=flops, bytes=nbytes[kind], **times, bound_ms=bound_ms,
                 bound_by=bound_by, tflops=flops / times["ms"] / 1e9,
                 factor_vs_bound=times["ms"] / bound_ms,
                 factor_vs_library=times["ms"] / times["library_ms"],
-                **build.get(name, {}))
+                **extra, **build.get(name, {}))
             if ci == 256:   # the record's shape: the larger of the two convs
                 records[name] = {
                     "name": name, "route": "cuda",
@@ -1073,12 +1117,53 @@ def phase_conv() -> dict:
                     }[name],
                     "launches": None, "max_abs_err": err, **times,
                     "bound_ms": bound_ms, "bound_by": bound_by,
-                    "shape": f"[1,100,100,100,{ci}] -> {co}, bfloat16"}
+                    "shape": f"[1,100,100,100,{ci}] -> {co}, bfloat16", **extra}
             else:
-                records[name]["up0_128_to_128"] = {**times, "bound_ms": bound_ms}
+                records[name]["up0_128_to_128"] = {**times, "bound_ms": bound_ms,
+                                                   **extra}
         del x, wm, dy, xl, gl, wl, w_flip, cases, fns, lib_dw
         torch.cuda.empty_cache()
     return records
+
+
+def conv_times(rounds: int = 2) -> dict:
+    """The dW kernels' device time alone (`device_ms`, and the host loop's
+    reading beside it) at the policy's two 100³ convs in bf16: the resident
+    scheme, the workspace scheme (with its reduction) and conv3d_weight (a
+    yardstick), read in alternation, `rounds` times each, through the
+    public entry points only, so that the same file times an older checkout
+    (run it from the root of each)."""
+    import torch
+    from manigaussian_tpu_torch.ops.conv3d import (conv3d_dw_resident,
+                                                   conv3d_dw_workspace)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    out = {}
+    for label, ci, co in (("final 256→128", 256, 128),
+                          ("up0 post-resize 128→128", 128, 128)):
+        x = torch.randn(1, 100, 100, 100, ci, generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        dy = torch.randn(1, 100, 100, 100, co, generator=gen,
+                         device="cuda").to(torch.bfloat16)
+        xl, gl = (t.permute(0, 4, 1, 2, 3) for t in (x, dy))
+        shape = (co, ci, 3, 3, 3)
+        fns = {"resident": lambda: conv3d_dw_resident(x, dy),
+               "workspace": lambda: conv3d_dw_workspace(x, dy),
+               "conv3d_weight": lambda: torch.nn.grad.conv3d_weight(
+                   xl, shape, gl, padding=1)}
+        times = {k: [] for k in fns}
+        host = {k: [] for k in fns}
+        for r in range(rounds):
+            for k in (fns if r % 2 == 0 else list(fns)[::-1]):
+                times[k].append(device_ms(fns[k], iters=10, warmup=2))
+                host[k].append(cuda_ms(fns[k], iters=10, warmup=2))
+        out[label] = times
+        log("conv_times", conv=label, shape=[1, 100, 100, 100, ci], co=co,
+            dtype="bfloat16", device_ms=times, host_loop_ms=host,
+            resident_over_library=[a / b for a, b in
+                                   zip(times["resident"], times["conv3d_weight"])])
+        del x, dy, xl, gl, fns
+        torch.cuda.empty_cache()
+    return out
 
 
 def phase_small() -> None:
@@ -2185,6 +2270,126 @@ def phase_nerf_parts(batch, cfg) -> dict:
     return out
 
 
+def gnf_steps(devices=("cuda", "cpu"), steps: int = 2) -> dict:
+    """GNFACTOR_BC at `gnf_slice`'s width: the same seeded weights and the
+    same first batch through `update` on each of `devices` (the kernels on
+    the card, the plain versions on the CPU), dropout 0, the same
+    augmentation and NeRF draws, `steps` steps on that batch. Logs each
+    step's loss heads, per LAMB leaf of each update the trust ratio
+    (|Δp| / (lr·|u|), u rebuilt from the moments the step left) and the
+    relative change |Δp| / |p| of the leaves that moved most, the scale of
+    the voxel features each NeRF call reads, and the losses with the first
+    update applied to one group of leaves only (the NeRF MLP's
+    zero-initialized fc1 weights, the rest of the NeRF, the policy)."""
+    import numpy as np
+    import torch
+    from manigaussian_tpu_torch.agents.registry import create_agent
+    from manigaussian_tpu_torch.data.language import create_language_model
+    from manigaussian_tpu_torch.data.pipeline import assemble_batch, fill_replay
+    from manigaussian_tpu_torch.data.replay import TaskUniformReplay
+    from manigaussian_tpu_torch.data.synthetic import generate_task
+    from manigaussian_tpu_torch.ops.augmentation import sample_se3_draws
+    from manigaussian_tpu_torch.rendering.nerf_renderer import \
+        GNFactorNeRFRenderer
+
+    cfg = train_config("w_geo", GNF_OVERRIDES)
+    cfg = dataclasses.replace(cfg, method=dataclasses.replace(
+        cfg.method, input_dropout=0.0, attn_dropout=0.0))
+    m = cfg.method
+    demos = os.path.join(WORK, "gnf_step_demos")
+    generate_task(demos, TASK, num_episodes=2, timesteps=16,
+                  h=cfg.rlbench.camera_resolution[0],
+                  w=cfg.rlbench.camera_resolution[1], nerf_views=3,
+                  nerf_hw=m.neural_renderer.image_height)
+    replay = TaskUniformReplay()
+    fill_replay(replay, demos, TASK, 2, cfg.rlbench.cameras,
+                cfg.rlbench.scene_bounds, m.voxel_sizes[0],
+                m.rotation_resolution, cfg.rlbench.episode_length,
+                create_language_model("stub"))
+    rng = np.random.default_rng(0)
+    batch = assemble_batch(replay.sample(1, rng), rng, m.num_view_for_nerf)
+    draws = sample_se3_draws(torch.Generator().manual_seed(5), 1, m.aug_rpy,
+                             m.rotation_resolution)
+    heads = ("total_loss", "bc_loss", "rgb_loss", "embed_loss", "psnr")
+    feats = []          # the voxel features each NeRF call sees
+
+    def run(dev):
+        agent = create_agent(cfg, device=dev, seed=0)
+        names = [n for n, _ in agent.qfn.named_parameters()]
+        rows = []
+        for i in range(steps):
+            opt = agent.optimizer()
+            before = [p.detach().clone() for p in opt.params]
+            t0 = time.perf_counter()
+            res = agent.update(batch, torch.Generator().manual_seed(i),
+                               draws=draws)
+            row = {k: float(res[k]) for k in heads}
+            row["step_s"] = time.perf_counter() - t0
+            lr = opt.lr(opt.count - 1) if callable(opt.lr) else opt.lr
+            leaves = []
+            with torch.no_grad():
+                for n, p0, p, mu, nu in zip(names, before, opt.params, opt.mu,
+                                            opt.nu):
+                    u = mu / (torch.sqrt(nu) + opt.eps) + opt.weight_decay * p0
+                    dp = float(torch.linalg.norm((p - p0).float()))
+                    un = float(torch.linalg.norm(u.float()))
+                    pn = float(torch.linalg.norm(p0.float()))
+                    leaves.append({"leaf": n, "w_norm": pn, "trust":
+                                   dp / (lr * un) if un > 0 else None,
+                                   "rel_change": dp / pn if pn > 0 else None,
+                                   "abs_change": dp})
+            leaves.sort(key=lambda r: -r["abs_change"])
+            row["zero_init_leaves"] = [r for r in leaves
+                                       if r["w_norm"] == 0 and r["abs_change"]]
+            row["top_abs_change"] = leaves[:12]
+            rows.append(row)
+            log("gnf_step", device=dev, step=i, **row)
+            if i == 0:
+                first = (before, [p.detach().clone() for p in opt.params])
+        # the first update split by leaf group: the loss at the seeded
+        # weights with only that group's update applied (`update` reports
+        # the loss of the weights it starts from)
+        groups = {"nerf_fc1": lambda n: "nerf.mlp" in n and ".fc1." in n,
+                  "nerf_other": lambda n: (n.startswith("neural_renderer.")
+                                           and not ("nerf.mlp" in n
+                                                    and ".fc1." in n)),
+                  "policy": lambda n: not n.startswith("neural_renderer.")}
+        ablation = {}
+        for group, member in groups.items():
+            with torch.no_grad():
+                for n, p, p0, p1 in zip(names, opt.params, *first):
+                    p.copy_(p1 if member(n) else p0)
+            res = agent.update(batch, torch.Generator().manual_seed(1),
+                               draws=draws)
+            ablation[group] = {k: float(res[k]) for k in heads}
+        log("gnf_ablation", device=dev, loss_after_first_update_of=ablation)
+        del agent
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+        return rows
+
+    orig_forward = GNFactorNeRFRenderer.forward
+
+    def watched_forward(self, voxel_feat, *args, **kwargs):
+        v = voxel_feat.detach().float()
+        feats.append({"shape": list(v.shape), "mean_abs": float(v.abs().mean()),
+                      "std": float(v.std()), "max_abs": float(v.abs().max())})
+        return orig_forward(self, voxel_feat, *args, **kwargs)
+
+    GNFactorNeRFRenderer.forward = watched_forward
+    try:
+        out = {dev: run(dev) for dev in devices}
+    finally:
+        GNFactorNeRFRenderer.forward = orig_forward
+    log("gnf_steps", config="w_geo", overrides=GNF_OVERRIDES,
+        devices=list(devices), steps=steps,
+        rgb_loss={dev: [r["rgb_loss"] for r in rows] for dev, rows in out.items()},
+        total_loss={dev: [r["total_loss"] for r in rows]
+                    for dev, rows in out.items()},
+        nerf_voxel_features=feats, ok=True)
+    return out
+
+
 def embed_ab(rounds: int = 3, steps: int = 5) -> dict:
     """Where the SD VAE's GT embedding runs in `w_geo_sem_dyna` training.
     One agent (the train slice's config: kernel route, pallas conv, random-
@@ -2291,9 +2496,11 @@ def embed_ab(rounds: int = 3, steps: int = 5) -> dict:
 
 
 def main(argv) -> int:
-    if argv not in ([], ["--flash-times"], ["--blend-times"], ["--embed-ab"]):
+    if argv not in ([], ["--flash-times"], ["--blend-times"], ["--embed-ab"],
+                    ["--conv-times"], ["--gnf-steps"]):
         print(f"chip_smoke: unknown arguments {argv}; takes none, "
-              "--flash-times, --blend-times or --embed-ab", file=sys.stderr)
+              "--flash-times, --blend-times, --conv-times, --embed-ab or "
+              "--gnf-steps", file=sys.stderr)
         return 2
     try:
         import torch
@@ -2342,6 +2549,16 @@ def main(argv) -> int:
         # where the semantic tiers' GT embedding runs, in one call
         phase_build()
         embed_ab()
+        return 0
+    if argv == ["--conv-times"]:
+        # the dW kernels' times alone, for the same kind of A/B
+        phase_build()
+        conv_times()
+        return 0
+    if argv == ["--gnf-steps"]:
+        # GNFACTOR_BC's first steps at full width, card against CPU
+        phase_build()
+        gnf_steps()
         return 0
     t_start = time.time()
     phase_build()

@@ -28,7 +28,7 @@
 // operations): `final` 256 -> 128 is 1.77 TFLOP = 1.79 ms (its 512 MB in and
 // 512 MB fp32 out take 0.31 ms at 3.35 TB/s), `up0` post-resize 128 -> 128
 // 0.88 TFLOP = 0.89 ms. All are bound by operations, so the bf16 forward and
-// the workspace dW run on wgmma, fed by TMA through a ring of shared-memory
+// both dW schemes run on wgmma, fed by TMA through a ring of shared-memory
 // stages with mbarrier full/empty pairs, a producer apart from the consumer
 // warpgroups. With the loads and the fragment reads taken out, the wgmma
 // loops alone come within 8 % (forward) and 18 % (dW) of the bound; what the
@@ -64,22 +64,30 @@
 //     ldmatrix runs under the wgmma group before, one group in flight across
 //     stage boundaries. Four warpgroups of one m64 tile were slower;
 //   * dW: CUDA blocks run in no order and float atomics would make the sum
-//     depend on the schedule, so neither scheme uses them. Workspace scheme:
-//     a CTA owns 3 taps (one stencil row) x 64 x 128 of dW over a slab of the
-//     voxels, one consumer warpgroup per x tap (m64n128 each, so an A
+//     depend on the schedule, so neither scheme uses them. Both walk a dW
+//     tile the same way (`dw_walk`): a tile is 3 taps (one stencil row) x 64
+//     x 128 of dW, one consumer warpgroup per x tap (m64n128 each, so an A
 //     fragment feeds 128 columns, and one wgmma group per stage; two
 //     warpgroups of 3 x m64n64 took a third longer; a 128-channel tile, 2 x
 //     m64n128 a warpgroup, does not fit the 160 registers four warpgroups
-//     leave, and ptxas serializes its wgmma). Each (tile, slab) CTA writes
+//     leave, and ptxas serializes its wgmma), 36 tiles at 256 -> 128 and 18
+//     at 128 -> 128. The schemes differ in their grid and their epilogue:
+//   * workspace scheme (the training backward): each (tile, slab) CTA writes
 //     its partial to workspace[slab] and a second kernel adds the partials
 //     in slab order: bitwise repeatable. The wrapper cuts the voxels into as
 //     many slabs as fill whole waves of SMs (11 or 22 at the policy's convs,
-//     396 CTAs on 132 SMs). A cluster reduction through distributed shared
-//     memory was not built: the workspace is 39 MB, written and read once;
-//   * resident scheme (off the training path): tiles of 1 tap x 64 x 64 on
-//     mma.sync, one CTA per tile walks every voxel and writes dW once: no
-//     workspace and no second pass, but x and dy are read once per owner (27
-//     x Ci/64 x Co/64 owners);
+//     396 CTAs on 132 SMs); the workspace is 39 MB, written and read once;
+//   * resident scheme: the accumulator stays on chip for the whole walk and
+//     dW is written once, as in the TPU kernels. Each tile is one
+//     thread-block cluster of S CTAs (S <= 16, 8 the portable limit); the
+//     cluster's ranks split the tile's voxel walk, each CTA lays its three
+//     m64n128 accumulators over its own ring (96 KB) when the walk is done,
+//     and after a cluster barrier rank r adds its 1/S of the tile over
+//     ranks 0 .. S-1 in rank order through distributed shared memory and
+//     writes it. No workspace, no second pass, no atomics; the order of the
+//     sum depends on S alone. The wrapper picks S from the shapes and the
+//     clusters the card holds at once (cudaOccupancyMaxActiveClusters, 1
+//     CTA an SM, clusters inside one GPC): the fewest waves x stages a CTA;
 //   * fp32 inputs (the parity paths): one thread per output element.
 // Not done: TMA multicast of the weights or of dy across a cluster (with all
 // SMs busy a step takes 15 % longer than on a few, the share of L2), a
@@ -91,10 +99,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <cooperative_groups.h>
+
 #include "hopper.cuh"
 
 namespace {
 
+namespace cg = cooperative_groups;
 using bf16 = __nv_bfloat16;
 using namespace hopper;
 
@@ -102,7 +113,7 @@ constexpr int kThreads = 256;
 
 struct Volume {
   int nb, d, h, w;
-  __device__ __forceinline__ int voxels() const { return nb * d * h * w; }
+  __host__ __device__ __forceinline__ int voxels() const { return nb * d * h * w; }
 };
 
 // One voxel's position; `sample` is the linear index of its sample's first
@@ -136,23 +147,6 @@ __device__ __forceinline__ int tap_voxel(const Volume& v, const Pos& p,
   return in ? p.sample + (z * v.h + y) * v.w + x : -1;
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool valid) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  int bytes = valid ? 16 : 0;  // 0 source bytes: the 16 bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 __device__ __forceinline__ void ldmatrix_x4_addr(uint32_t (&r)[4],
                                                  uint32_t smem_addr) {
   asm volatile(
@@ -167,43 +161,6 @@ __device__ __forceinline__ void ldmatrix_x4_trans_addr(uint32_t (&r)[4],
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
-
-// c += a · b, a 16x16 bf16 (row), b 16x8 bf16 (col), c 16x8 fp32.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Fragment loaders from a row-major shared-memory tile with `stride` elements
-// per row (the m16n8k16 layouts).
-// A operand where A[m][k] = X[k][m]: X rows k0..k0+15, columns m0..m0+15.
-__device__ __forceinline__ void load_a_t(uint32_t (&a)[4], const bf16* s,
-                                         int stride, int k0, int m0, int lane) {
-  const int mat = lane / 8;
-  ldmatrix_x4_trans(a, s + (k0 + (lane % 8) + (mat / 2) * 8) * stride + m0 +
-                           (mat % 2) * 8);
-}
-// B operands of two n8 tiles where B[k][n] = Y[k][n]: Y rows k0..k0+15,
-// columns n0..n0+15. b[0], b[1] feed n-tile n0/8, b[2], b[3] n-tile n0/8 + 1.
-__device__ __forceinline__ void load_b_t(uint32_t (&b)[4], const bf16* s,
-                                         int stride, int k0, int n0, int lane) {
-  const int mat = lane / 8;
-  ldmatrix_x4_trans(b, s + (k0 + (lane % 8) + (mat % 2) * 8) * stride + n0 +
-                           (mat / 2) * 8);
 }
 
 // ---------------------------------------------- forward / dx, bf16, wgmma
@@ -465,147 +422,11 @@ __global__ void __launch_bounds__(kThreads)
   y[idx] = acc;
 }
 
-// ----------------------------------------------------------------- dW, bf16
-constexpr int kDwVox = 64;  // voxels per stage (the GEMM's K step)
-constexpr int kDwCi = 64;   // input channels per dW tile (the GEMM's M)
-constexpr int kDwXStride = kDwCi + 8;
-constexpr int kDwStages = 2;
-static_assert(kDwVox == 2 * (kThreads / 8), "two x rows per thread and tap");
-
-template <int TG, int BN>
-constexpr int dw_smem_bytes() {
-  return kDwStages * kDwVox * (TG * kDwXStride + BN + 8) *
-         static_cast<int>(sizeof(bf16));
-}
-
-// A CTA accumulates, over the voxels of slab blockIdx.y, the dW tile
-// blockIdx.x = (tap group, 64 input channels, BN output channels), and
-// writes it to out + slab·27·Ci·Co. TG taps to a group: TG = 3 is one row of
-// the stencil (the three x offsets), TG = 1 a single tap.
-template <int TG, int BN>
-__global__ void __launch_bounds__(kThreads)
-    conv3d_dw_bf16_kernel(const bf16* __restrict__ x,
-                          const bf16* __restrict__ dy, float* __restrict__ out,
-                          Volume vol, int ci, int co, int chunks_per_slab) {
-  constexpr int kDyStride = BN + 8;
-  constexpr int kWarpN = BN / 4;   // output channels per warp
-  constexpr int kNT = kWarpN / 8;  // n8 tiles per warp
-  static_assert(kNT % 2 == 0, "two n8 tiles per ldmatrix");
-  constexpr int kStage = kDwVox * (TG * kDwXStride + kDyStride);
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
-
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int warp_m = warp % 2, warp_n = warp / 2;
-  const int total = vol.voxels();
-  const int co_tiles = (co + BN - 1) / BN;
-  const int ci_tiles = (ci + kDwCi - 1) / kDwCi;
-  const int n0 = (blockIdx.x % co_tiles) * BN;
-  const int c0 = ((blockIdx.x / co_tiles) % ci_tiles) * kDwCi;
-  const int tap0 = (blockIdx.x / (co_tiles * ci_tiles)) * TG;
-  const int chunks = (total + kDwVox - 1) / kDwVox;
-  const int chunk_lo = blockIdx.y * chunks_per_slab;
-  const int chunk_hi = min(chunks, chunk_lo + chunks_per_slab);
-
-  const int x_vec = (tid % 8) * 8;  // this thread's 16-byte column of x rows
-
-  auto load_stage = [&](int chunk, int stage) {
-    bf16* sx = smem + stage * kStage;
-    bf16* sdy = sx + TG * kDwVox * kDwXStride;
-    const int v0 = chunk * kDwVox;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = tid / 8 + i * 32;
-      const Pos p = locate(vol, v0 + r, total);
-#pragma unroll
-      for (int j = 0; j < TG; ++j) {
-        const int src = tap_voxel(vol, p, tap0 + j);
-        const bool ok = src >= 0 && c0 + x_vec < ci;
-        cp_async16(&sx[(j * kDwVox + r) * kDwXStride + x_vec],
-                   x + (ok ? static_cast<size_t>(src) * ci + c0 + x_vec : 0), ok);
-      }
-    }
-    for (int i = tid; i < kDwVox * (BN / 8); i += kThreads) {
-      const int r = i / (BN / 8), c = (i % (BN / 8)) * 8;
-      const bool ok = v0 + r < total && n0 + c < co;
-      cp_async16(&sdy[r * kDyStride + c],
-                 dy + (ok ? static_cast<size_t>(v0 + r) * co + n0 + c : 0), ok);
-    }
-  };
-
-  float acc[TG][2][kNT][4];
-#pragma unroll
-  for (int j = 0; j < TG; ++j)
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < kNT; ++nt)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[j][mt][nt][c] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < kDwStages - 1; ++s) {
-    if (chunk_lo + s < chunk_hi) load_stage(chunk_lo + s, s);
-    cp_async_commit();
-  }
-  for (int chunk = chunk_lo; chunk < chunk_hi; ++chunk) {
-    const int it = chunk - chunk_lo, stage = it % kDwStages;
-    cp_async_wait<kDwStages - 2>();
-    __syncthreads();
-    // the stage refilled here was read in the iteration before, which every
-    // thread has left (the barrier above)
-    const int nxt = chunk + kDwStages - 1;
-    if (nxt < chunk_hi) load_stage(nxt, (it + kDwStages - 1) % kDwStages);
-    cp_async_commit();
-    const bf16* sx = smem + stage * kStage;
-    const bf16* sdy = sx + TG * kDwVox * kDwXStride;
-#pragma unroll
-    for (int kk = 0; kk < kDwVox; kk += 16) {
-      uint32_t bf[kNT / 2][4];
-#pragma unroll
-      for (int np = 0; np < kNT / 2; ++np)
-        load_b_t(bf[np], sdy, kDyStride, kk, warp_n * kWarpN + np * 16, lane);
-#pragma unroll
-      for (int j = 0; j < TG; ++j)
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          uint32_t af[4];
-          load_a_t(af, sx + j * kDwVox * kDwXStride, kDwXStride, kk,
-                   warp_m * 32 + mt * 16, lane);
-#pragma unroll
-          for (int np = 0; np < kNT / 2; ++np) {
-            mma_bf16(acc[j][mt][2 * np], af, bf[np][0], bf[np][1]);
-            mma_bf16(acc[j][mt][2 * np + 1], af, bf[np][2], bf[np][3]);
-          }
-        }
-    }
-  }
-  cp_async_wait<0>();
-
-  float* tile = out + static_cast<size_t>(blockIdx.y) * 27 * ci * co;
-  const int g = lane / 4, q = lane % 4;
-#pragma unroll
-  for (int j = 0; j < TG; ++j)
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = c0 + warp_m * 32 + mt * 16 + g + half * 8;
-        if (row >= ci) continue;
-#pragma unroll
-        for (int nt = 0; nt < kNT; ++nt) {
-          const int col = n0 + warp_n * kWarpN + nt * 8 + 2 * q;
-          if (col < co)
-            *reinterpret_cast<float2*>(
-                &tile[(static_cast<size_t>(tap0 + j) * ci + row) * co + col]) =
-                make_float2(acc[j][mt][nt][2 * half],
-                            acc[j][mt][nt][2 * half + 1]);
-        }
-      }
-}
-
 // ---------------------------------------------------------- dW, bf16, wgmma
+constexpr int kDwVox = 64;           // voxels per stage (the GEMM's K step)
+constexpr int kDwCi = 64;            // input channels per dW tile (the GEMM's M)
 constexpr int kDwThreads = 512;      // three consumer warpgroups and a producer
+constexpr int kDwConsumers = 384;
 // The CTA starts with 128 registers a thread; what the producer gives up the
 // consumers take: 3·160 + 32 = 4·128.
 constexpr int kDwConsumerRegs = 160;
@@ -624,11 +445,30 @@ constexpr int kDwWgStageBytes =
     (kDwDyBytes + kDwXBox + 3 * kDwKeepWords * 4 + 1023) / 1024 * 1024;
 constexpr int kDwWgStages = (227 * 1024 - 2048) / kDwWgStageBytes;
 constexpr int kDwWgSmemBytes = kDwWgStages * kDwWgStageBytes + 1024;  // + alignment slack
+// The resident scheme's partial tile, [3 x taps][64 ci][128 co] fp32, laid
+// over the ring once the walk is done; kDwTileF4 float4 a tile.
+constexpr int kDwTileF4 = 3 * kDwCi * kDwTileCo / 4;
+static_assert(kDwTileF4 * 16 <= kDwWgStages * kDwWgStageBytes,
+              "the partial tile must fit in the ring");
+constexpr int kDwMaxCluster = 16;    // the non-portable limit; 8 is portable
 
-// dW[tap] = x_tap^T · dy on wgmma: M = 64 input channels, N = 128 output
-// channels, K = the voxels of slab blockIdx.y in steps of 64, for the three x
-// taps of stencil row blockIdx.x / (tiles of Ci x tiles of Co). The partial
-// tile goes to out + slab·27·Ci·Co. A stage holds
+// dW tile `tile` of a [27, ci, co] gradient: the three x taps of stencil row
+// zy, input channels c0 .. c0+63, output channels n0 .. n0+127.
+struct DwTile {
+  int zy, c0, n0;
+};
+
+__device__ __forceinline__ DwTile dw_tile(int tile, int ci, int co) {
+  const int co_tiles = (co + kDwTileCo - 1) / kDwTileCo;
+  const int ci_tiles = (ci + kDwCi - 1) / kDwCi;
+  return {tile / (co_tiles * ci_tiles), ((tile / co_tiles) % ci_tiles) * kDwCi,
+          (tile % co_tiles) * kDwTileCo};
+}
+
+// The walk of both dW schemes: dW[tap] = x_tap^T · dy on wgmma for the three
+// x taps of tile `t` (M = 64 input channels, N = 128 output channels), K =
+// the voxels of stages chunk_lo .. chunk_lo + n_iter - 1, 64 voxels a stage.
+// A stage holds
 //   * dy [64 voxels][128 co] as it lies in memory (co contiguous: an MN-major
 //     B operand), two TMA boxes of 64 channels with the 128-byte swizzle,
 //     read by wgmma through a descriptor;
@@ -650,27 +490,22 @@ constexpr int kDwWgSmemBytes = kDwWgStages * kDwWgStageBytes + 1024;  // + align
 // k16 step. One A fragment so feeds a 128-wide wgmma: shared memory
 // carries the B reads of wgmma, the ldmatrix reads and TMA's writes, and it,
 // not the tensor cores, sets the pace when A fragments feed 64 columns.
-__global__ void __launch_bounds__(kDwThreads, 1)
-    conv3d_dw_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
-                           const __grid_constant__ CUtensorMap map_dy,
-                           float* __restrict__ out, Volume vol, int ci, int co,
-                           int chunks_per_slab) {
+// When the walk is done, the producer threads call `producer_tail()` and
+// each consumer thread `consumer_tail(acc, ox)` with its tap's accumulator
+// (thread (warp w, lane 4g + q) holds acc[4j + 2h + e] = dW[ox][16w + g +
+// 8h][8j + 2q + e]); a CTA with no stage (n_iter 0) hands on zeros.
+template <class ProducerTail, class ConsumerTail>
+__device__ __forceinline__ void dw_walk(const CUtensorMap* map_x,
+                                        const CUtensorMap* map_dy,
+                                        unsigned char* smem, uint64_t* full,
+                                        uint64_t* empty, const Volume& vol,
+                                        const DwTile& t, int chunk_lo,
+                                        int n_iter, ProducerTail producer_tail,
+                                        ConsumerTail consumer_tail) {
   constexpr int kStages = kDwWgStages;
-  extern __shared__ unsigned char smem_raw[];
-  __shared__ uint64_t full[kStages], empty[kStages];
-  unsigned char* smem = align_1024(smem_raw);
-
   const int tid = threadIdx.x, wg = tid / 128;
   const int lane = tid % 32, warp = (tid % 128) / 32;
   const int total = vol.voxels();
-  const int co_tiles = (co + kDwTileCo - 1) / kDwTileCo;
-  const int ci_tiles = (ci + kDwCi - 1) / kDwCi;
-  const int n0 = (blockIdx.x % co_tiles) * kDwTileCo;
-  const int c0 = ((blockIdx.x / co_tiles) % ci_tiles) * kDwCi;
-  const int zy = blockIdx.x / (co_tiles * ci_tiles);
-  const int chunks = (total + kDwVox - 1) / kDwVox;
-  const int chunk_lo = min(chunks, static_cast<int>(blockIdx.y) * chunks_per_slab);
-  const int n_iter = min(chunks, chunk_lo + chunks_per_slab) - chunk_lo;
 
   if (tid == 0) {
     for (int s = 0; s < kStages; ++s) {
@@ -684,7 +519,7 @@ __global__ void __launch_bounds__(kDwThreads, 1)
   if (wg == 3) {
     // ------------------------------------------------------------ producer
     reg_dealloc<kDwProducerRegs>();
-    const int dz = zy / 3 - 1, dyy = zy % 3 - 1;
+    const int dz = t.zy / 3 - 1, dyy = t.zy % 3 - 1;
     for (int it = warp; it < n_iter; it += 4) {
       const int stage = it % kStages;
       mbar_wait(&empty[stage], ((it / kStages) & 1) ^ 1);
@@ -710,16 +545,17 @@ __global__ void __launch_bounds__(kDwThreads, 1)
       __syncwarp();
       if (lane == 0) {
         mbar_arrive_expect_tx(&full[stage], kDwDyBytes + kDwHalo * 128);
-        tma_load_2d(sdy + kDwDyBytes, &map_x, &full[stage], c0,
+        tma_load_2d(sdy + kDwDyBytes, map_x, &full[stage], t.c0,
                     v0 - 1 + (dz * vol.h + dyy) * vol.w);
-        tma_load_2d(sdy, &map_dy, &full[stage], n0, v0);
-        tma_load_2d(sdy + kDwDyHalf, &map_dy, &full[stage], n0 + 64, v0);
+        tma_load_2d(sdy, map_dy, &full[stage], t.n0, v0);
+        tma_load_2d(sdy + kDwDyHalf, map_dy, &full[stage], t.n0 + 64, v0);
       }
     }
+    producer_tail();
   } else {
     // ----------------------------------------------- consumers: x tap `wg`
     reg_alloc<kDwConsumerRegs>();
-    const int g = lane / 4, q = lane % 4;
+    const int q = lane % 4;
     const int ox = wg;
 
     float acc[64];
@@ -784,22 +620,115 @@ __global__ void __launch_bounds__(kDwThreads, 1)
       if (it + 1 < n_iter) step(af1, af0, it + 1);
     }
     wgmma_wait<0>();
-
-    float* tile = out + static_cast<size_t>(blockIdx.y) * 27 * ci * co +
-                  static_cast<size_t>(zy * 3 + ox) * ci * co;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = c0 + warp * 16 + g + half * 8;
-      if (row >= ci) continue;
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const int col = n0 + j * 8 + 2 * q;
-        if (col < co)
-          *reinterpret_cast<float2*>(&tile[static_cast<size_t>(row) * co + col]) =
-              make_float2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
-      }
-    }
+    consumer_tail(acc, ox);
   }
+}
+
+// Workspace scheme: the tile blockIdx.x over the stages of slab blockIdx.y;
+// the partial goes to out + slab·27·Ci·Co, and conv3d_dw_reduce_kernel adds
+// the slabs' partials in order.
+__global__ void __launch_bounds__(kDwThreads, 1)
+    conv3d_dw_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
+                           const __grid_constant__ CUtensorMap map_dy,
+                           float* __restrict__ out, Volume vol, int ci, int co,
+                           int chunks_per_slab) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ uint64_t full[kDwWgStages], empty[kDwWgStages];
+  const DwTile t = dw_tile(blockIdx.x, ci, co);
+  const int chunks = (vol.voxels() + kDwVox - 1) / kDwVox;
+  const int chunk_lo = min(chunks, static_cast<int>(blockIdx.y) * chunks_per_slab);
+  const int n_iter = min(chunks, chunk_lo + chunks_per_slab) - chunk_lo;
+  float* part = out + static_cast<size_t>(blockIdx.y) * 27 * ci * co;
+  dw_walk(&map_x, &map_dy, align_1024(smem_raw), full, empty, vol, t, chunk_lo,
+          n_iter, [] {}, [&](const float (&acc)[64], int ox) {
+            const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
+            const int g = lane / 4, q = lane % 4;
+            float* tile = part + static_cast<size_t>(t.zy * 3 + ox) * ci * co;
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+              const int row = t.c0 + warp * 16 + g + half * 8;
+              if (row >= ci) continue;
+#pragma unroll
+              for (int j = 0; j < 16; ++j) {
+                const int col = t.n0 + j * 8 + 2 * q;
+                if (col < co)
+                  *reinterpret_cast<float2*>(&tile[static_cast<size_t>(row) * co + col]) =
+                      make_float2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+              }
+            }
+          });
+}
+
+// Resident scheme: one thread-block cluster of `cluster` CTAs a tile
+// (blockIdx.x / cluster); rank r walks stages r·per .. r·per + per - 1, per =
+// ⌈stages / cluster⌉ (none where that starts past the end). Then each CTA
+// lays its three taps' accumulators over its ring as [3][64][128] fp32,
+// and after a cluster barrier rank r adds float4 r·share .. r·share +
+// share - 1 of the tile (share = ⌈kDwTileF4 / cluster⌉) over ranks 0 ..
+// cluster - 1 in rank order, through distributed shared memory, and writes
+// that part of dW once. A second barrier keeps every CTA until the others
+// have read its partial. No workspace, no second kernel, no atomics: the
+// order of every sum is fixed by the shapes and the cluster size.
+__global__ void __launch_bounds__(kDwThreads, 1)
+    conv3d_dw_resident_kernel(const __grid_constant__ CUtensorMap map_x,
+                              const __grid_constant__ CUtensorMap map_dy,
+                              float* __restrict__ dw, Volume vol, int ci,
+                              int co, int cluster_size) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ uint64_t full[kDwWgStages], empty[kDwWgStages];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const DwTile t = dw_tile(blockIdx.x / cluster_size, ci, co);
+  const int chunks = (vol.voxels() + kDwVox - 1) / kDwVox;
+  const int per = (chunks + cluster_size - 1) / cluster_size;
+  const int chunk_lo = min(chunks, rank * per);
+  const int n_iter = min(chunks, chunk_lo + per) - chunk_lo;
+  unsigned char* smem = align_1024(smem_raw);
+  float* part = reinterpret_cast<float*>(smem);
+  dw_walk(&map_x, &map_dy, smem, full, empty, vol, t, chunk_lo, n_iter,
+          [&] {
+            cluster.sync();
+            cluster.sync();
+          },
+          [&](const float (&acc)[64], int ox) {
+            const int tid = threadIdx.x;  // < kDwConsumers
+            const int lane = tid % 32, warp = (tid % 128) / 32;
+            const int g = lane / 4, q = lane % 4;
+            bar_sync(1, kDwConsumers);  // every consumer is done with the ring
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+              float* row = part + (ox * kDwCi + warp * 16 + g + half * 8) * kDwTileCo;
+#pragma unroll
+              for (int j = 0; j < 16; ++j)
+                *reinterpret_cast<float2*>(&row[j * 8 + 2 * q]) =
+                    make_float2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+            }
+            cluster.sync();
+            const int share = (kDwTileF4 + cluster_size - 1) / cluster_size;
+            const int lo = min(kDwTileF4, rank * share);
+            const int hi = min(kDwTileF4, lo + share);
+            for (int i = lo + tid; i < hi; i += kDwConsumers) {
+              float4 s = reinterpret_cast<const float4*>(
+                  cluster.map_shared_rank(part, 0))[i];
+              for (int r = 1; r < cluster_size; ++r) {
+                const float4 v = reinterpret_cast<const float4*>(
+                    cluster.map_shared_rank(part, r))[i];
+                s.x += v.x;
+                s.y += v.y;
+                s.z += v.z;
+                s.w += v.w;
+              }
+              // float4 i is x tap i / 2048, input channel row, output channels col ..
+              // col + 3 of the tile (Co is a multiple of 8: all in or all out)
+              const int tap = t.zy * 3 + i / (kDwCi * kDwTileCo / 4);
+              const int row = t.c0 + (i / (kDwTileCo / 4)) % kDwCi;
+              const int col = t.n0 + (i % (kDwTileCo / 4)) * 4;
+              if (row < ci && col < co)
+                *reinterpret_cast<float4*>(
+                    &dw[(static_cast<size_t>(tap) * ci + row) * co + col]) = s;
+            }
+            cluster.sync();  // no CTA leaves while another reads its partial
+          });
 }
 
 // ----------------------------------------------------------------- dW, fp32
@@ -838,24 +767,6 @@ __global__ void __launch_bounds__(kThreads)
   dw[idx] = acc;
 }
 
-template <int TG, int BN>
-int launch_dw_bf16(const void* x, const void* dy, void* out, Volume vol, int ci,
-                   int co, int slabs, cudaStream_t st) {
-  constexpr int kSmem = dw_smem_bytes<TG, BN>();
-  cudaError_t err = cudaFuncSetAttribute(
-      conv3d_dw_bf16_kernel<TG, BN>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int total = vol.nb * vol.d * vol.h * vol.w;
-  const int chunks = (total + kDwVox - 1) / kDwVox;
-  const int tiles = (27 / TG) * ((ci + kDwCi - 1) / kDwCi) * ((co + BN - 1) / BN);
-  dim3 grid(tiles, slabs);
-  conv3d_dw_bf16_kernel<TG, BN><<<grid, kThreads, kSmem, st>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(dy),
-      static_cast<float*>(out), vol, ci, co, (chunks + slabs - 1) / slabs);
-  return static_cast<int>(cudaGetLastError());
-}
-
 int launch_fwd_wgmma(const void* x, const void* w, void* y, Volume vol, int ci,
                      int co, cudaStream_t st) {
   const int total = vol.nb * vol.d * vol.h * vol.w;
@@ -880,29 +791,78 @@ int launch_fwd_wgmma(const void* x, const void* w, void* y, Volume vol, int ci,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The dW kernels' tensor maps: x and dy as [voxels, C] matrices, x in the
+// 66-voxel halo boxes, dy in [64 voxels][64 co] boxes.
+bool make_dw_maps(CUtensorMap* map_x, CUtensorMap* map_dy, const void* x,
+                  const void* dy, const Volume& vol, int ci, int co) {
+  const uint64_t total = static_cast<uint64_t>(vol.nb) * vol.d * vol.h * vol.w;
+  const uint64_t x_dims[2] = {static_cast<uint64_t>(ci), total};
+  const uint64_t dy_dims[2] = {static_cast<uint64_t>(co), total};
+  const uint32_t x_box[2] = {kDwCi, kDwHalo}, dy_box[2] = {64, kDwVox};
+  return make_map(map_x, x, 2, x_dims, x_box, CU_TENSOR_MAP_SWIZZLE_128B) &&
+         make_map(map_dy, dy, 2, dy_dims, dy_box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+int dw_tiles(int ci, int co) {
+  return 9 * ((ci + kDwCi - 1) / kDwCi) * ((co + kDwTileCo - 1) / kDwTileCo);
+}
+
 int launch_dw_wgmma(const void* x, const void* dy, void* out, Volume vol, int ci,
                     int co, int slabs, cudaStream_t st) {
-  const int total = vol.nb * vol.d * vol.h * vol.w;
   CUtensorMap map_x, map_dy;
-  const uint64_t x_dims[2] = {static_cast<uint64_t>(ci),
-                              static_cast<uint64_t>(total)};
-  const uint64_t dy_dims[2] = {static_cast<uint64_t>(co),
-                               static_cast<uint64_t>(total)};
-  const uint32_t x_box[2] = {kDwCi, kDwHalo}, dy_box[2] = {64, kDwVox};
-  if (!make_map(&map_x, x, 2, x_dims, x_box, CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !make_map(&map_dy, dy, 2, dy_dims, dy_box, CU_TENSOR_MAP_SWIZZLE_128B))
+  if (!make_dw_maps(&map_x, &map_dy, x, dy, vol, ci, co))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
       conv3d_dw_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kDwWgSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int chunks = (total + kDwVox - 1) / kDwVox;
-  const int tiles = 9 * ((ci + kDwCi - 1) / kDwCi) *
-                    ((co + kDwTileCo - 1) / kDwTileCo);
-  dim3 grid(tiles, slabs);
+  const int chunks = (vol.voxels() + kDwVox - 1) / kDwVox;
+  dim3 grid(dw_tiles(ci, co), slabs);
   conv3d_dw_wgmma_kernel<<<grid, kDwThreads, kDwWgSmemBytes, st>>>(
       map_x, map_dy, static_cast<float*>(out), vol, ci, co,
       (chunks + slabs - 1) / slabs);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The resident kernel's attributes (its shared memory; above the portable 8
+// a cluster, the non-portable size) and the launch of `tiles` clusters of
+// `cluster` CTAs.
+cudaError_t resident_config(int cluster, int tiles, cudaStream_t st,
+                            cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
+  if (cluster < 1 || cluster > kDwMaxCluster) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      conv3d_dw_resident_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kDwWgSmemBytes);
+  if (err == cudaSuccess && cluster > 8)
+    err = cudaFuncSetAttribute(conv3d_dw_resident_kernel,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+  *cfg = {};
+  cfg->gridDim = dim3(tiles * cluster);
+  cfg->blockDim = dim3(kDwThreads);
+  cfg->dynamicSmemBytes = kDwWgSmemBytes;
+  cfg->stream = st;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
+}
+
+int launch_dw_resident(const void* x, const void* dy, void* dw, Volume vol,
+                       int ci, int co, int cluster, cudaStream_t st) {
+  CUtensorMap map_x, map_dy;
+  if (!make_dw_maps(&map_x, &map_dy, x, dy, vol, ci, co))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = resident_config(cluster, dw_tiles(ci, co), st, &cfg, &attr);
+  if (err == cudaSuccess)
+    err = cudaLaunchKernelEx(&cfg, conv3d_dw_resident_kernel, map_x, map_dy,
+                             static_cast<float*>(dw), vol, ci, co, cluster);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -964,12 +924,26 @@ extern "C" int conv3d_dw_workspace_bf16(const void* x, const void* dy,
   return err ? err : launch_reduce(workspace, dw, ci, co, slabs, st);
 }
 
+// `cluster` CTAs a dW tile (1 .. 16); a launch the card refuses (too many
+// CTAs of this size for one GPC: cudaErrorClusterOutOfResources) returns
+// its error and is not retried.
 extern "C" int conv3d_dw_resident_bf16(const void* x, const void* dy, void* dw,
                                        int nb, int d, int h, int wd, int ci,
-                                       int co, void* stream) {
+                                       int co, int cluster, void* stream) {
   if (ci % 8 || co % 8) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_dw_bf16<1, 64>(x, dy, dw, Volume{nb, d, h, wd}, ci, co, 1,
-                               static_cast<cudaStream_t>(stream));
+  return launch_dw_resident(x, dy, dw, Volume{nb, d, h, wd}, ci, co, cluster,
+                            static_cast<cudaStream_t>(stream));
+}
+
+// How many clusters of `cluster` resident-dW CTAs the current device holds
+// at once (cudaOccupancyMaxActiveClusters), into *active.
+extern "C" int conv3d_dw_resident_clusters(int cluster, int* active) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = resident_config(cluster, 1, nullptr, &cfg, &attr);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveClusters(active, conv3d_dw_resident_kernel, &cfg);
+  return static_cast<int>(err);
 }
 
 extern "C" int conv3d_dw_workspace_f32(const void* x, const void* dy,

@@ -32,10 +32,10 @@ from manigaussian_tpu_torch.ops import _cuda
 # in PERF.md).
 DW_SCHEME = "workspace"
 DW_SCHEMES = ("workspace", "resident")
-# The workspace scheme's grid (csrc/conv3d.cu): a CTA owns one dW tile (one
-# row of the stencil × DW_TILE_CI input × DW_TILE_CO output channels) over one
-# slab of the voxels, walked in steps of VOXELS_PER_STEP; one CTA is resident
-# on an SM at a time.
+# Both bf16 dW schemes (csrc/conv3d.cu) walk dW tiles of one row of the
+# stencil × DW_TILE_CI input × DW_TILE_CO output channels over the voxels in
+# steps of VOXELS_PER_STEP; one CTA is resident on an SM at a time. The
+# workspace scheme gives each (tile, slab) its CTA.
 DW_TILE_CI = 64
 DW_TILE_CO = 128
 VOXELS_PER_STEP = 64
@@ -43,11 +43,22 @@ MAX_SLABS = 64
 # what a CTA spends outside its walk (filling the pipeline, writing its
 # partial tile), in steps of the walk
 SLAB_OVERHEAD_STEPS = 8
+# The resident scheme gives each tile one thread-block cluster of S CTAs
+# (up to 8 portable, up to DW_MAX_CLUSTER with the non-portable size): the
+# ranks split the tile's steps, then add the tile's DW_TILE_F4 float4 of
+# partials in rank order, each rank its share.
+DW_MAX_CLUSTER = 16
+DW_TILE_F4 = 3 * DW_TILE_CI * DW_TILE_CO // 4
 
 
 def dw_tiles(ci: int, co: int) -> int:
-    """The number of dW tiles of the workspace scheme."""
+    """The number of dW tiles of both bf16 schemes."""
     return 9 * -(-ci // DW_TILE_CI) * -(-co // DW_TILE_CO)
+
+
+def dw_steps(voxels: int) -> int:
+    """The steps of one tile's walk over `voxels` voxels."""
+    return -(-voxels // VOXELS_PER_STEP)
 
 
 def dw_slabs(voxels: int, ci: int, co: int, sms: int) -> int:
@@ -58,13 +69,55 @@ def dw_slabs(voxels: int, ci: int, co: int, sms: int) -> int:
     one on a tie (a smaller workspace, a shorter sum in the second pass).
     Never more slabs than MAX_SLABS or than steps."""
     tiles = dw_tiles(ci, co)
-    steps = max(1, -(-voxels // VOXELS_PER_STEP))
+    steps = max(1, dw_steps(voxels))
     best, best_cost = 1, None
     for slabs in range(1, min(MAX_SLABS, steps) + 1):
         waves = -(-tiles * slabs // sms)
         cost = waves * (-(-steps // slabs) + SLAB_OVERHEAD_STEPS)
         if best_cost is None or cost < best_cost:
             best, best_cost = slabs, cost
+    return best
+
+
+def dw_rank_steps(steps: int, cluster: int):
+    """The steps [lo, hi) that each rank of a resident cluster walks, as the
+    kernel computes them: ⌈steps / cluster⌉ a rank, in rank order; a rank
+    that starts past the end gets none."""
+    per = -(-steps // cluster)
+    return [(min(steps, r * per), min(steps, r * per + per))
+            for r in range(cluster)]
+
+
+def dw_rank_shares(cluster: int):
+    """The float4 [lo, hi) of a dW tile that each rank of a resident cluster
+    adds up over the ranks and writes, as the kernel computes them."""
+    share = -(-DW_TILE_F4 // cluster)
+    return [(min(DW_TILE_F4, r * share), min(DW_TILE_F4, r * share + share))
+            for r in range(cluster)]
+
+
+def dw_resident_plan(voxels: int, ci: int, co: int, clusters: dict) -> dict:
+    """The resident scheme's launch, from the shapes and `clusters` (cluster
+    size S → how many clusters of S CTAs the card holds at once, from
+    cudaOccupancyMaxActiveClusters): the S of the fewest waves × steps a
+    CTA, where a wave is as many tiles as clusters fit at once; the smaller
+    S on a tie (a shorter sum). Sizes the card cannot hold (0 clusters) and
+    sizes above DW_MAX_CLUSTER are not candidates. Returns the cluster size,
+    the clusters at once, the waves, the steps a CTA and the grid (tiles ×
+    S CTAs)."""
+    tiles, steps = dw_tiles(ci, co), max(1, dw_steps(voxels))
+    best = None
+    for s, held in sorted(clusters.items()):
+        if not 1 <= s <= DW_MAX_CLUSTER or held < 1:
+            continue
+        waves = -(-tiles // held)
+        per = -(-steps // s)
+        if best is None or waves * per < best["waves"] * best["steps_per_cta"]:
+            best = {"cluster": s, "clusters_at_once": held, "waves": waves,
+                    "steps_per_cta": per, "grid": tiles * s}
+    if best is None:
+        raise RuntimeError(f"no cluster size of the resident dW kernel fits "
+                           f"on this device: {clusters}")
     return best
 
 
@@ -114,11 +167,13 @@ def _library() -> ctypes.CDLL:
             fn.argtypes = [ptr] * 3 + [i32] * 6 + [ptr]
         for fn in (lib.conv3d_dw_workspace_bf16, lib.conv3d_dw_workspace_f32):
             fn.argtypes = [ptr] * 4 + [i32] * 7 + [ptr]
-        for fn in (lib.conv3d_dw_resident_bf16, lib.conv3d_dw_resident_f32):
-            fn.argtypes = [ptr] * 3 + [i32] * 6 + [ptr]
+        lib.conv3d_dw_resident_bf16.argtypes = [ptr] * 3 + [i32] * 7 + [ptr]
+        lib.conv3d_dw_resident_f32.argtypes = [ptr] * 3 + [i32] * 6 + [ptr]
+        lib.conv3d_dw_resident_clusters.argtypes = [i32, ctypes.POINTER(i32)]
         for fn in (lib.conv3d_fwd_bf16, lib.conv3d_fwd_f32,
                    lib.conv3d_dw_workspace_bf16, lib.conv3d_dw_workspace_f32,
-                   lib.conv3d_dw_resident_bf16, lib.conv3d_dw_resident_f32):
+                   lib.conv3d_dw_resident_bf16, lib.conv3d_dw_resident_f32,
+                   lib.conv3d_dw_resident_clusters):
             fn.restype = i32
     return lib
 
@@ -169,15 +224,55 @@ def conv3d_forward(x: torch.Tensor, wm: torch.Tensor) -> torch.Tensor:
     return y
 
 
+_CLUSTERS = {}
+
+
+def resident_clusters(device: torch.device) -> dict:
+    """Cluster size S (1 .. DW_MAX_CLUSTER) → how many clusters of S resident
+    dW CTAs `device` holds at once (cudaOccupancyMaxActiveClusters), asked
+    once a device."""
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    if index not in _CLUSTERS:
+        lib = _library()
+        table = {}
+        with torch.cuda.device(index):
+            for s in range(1, DW_MAX_CLUSTER + 1):
+                held = ctypes.c_int(0)
+                err = lib.conv3d_dw_resident_clusters(s, ctypes.byref(held))
+                if err:
+                    raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed "
+                                       f"for clusters of {s}: CUDA error {err}")
+                table[s] = held.value
+        _CLUSTERS[index] = table
+    return _CLUSTERS[index]
+
+
 def conv3d_dw(x: torch.Tensor, dy: torch.Tensor,
               scheme: str = DW_SCHEME) -> torch.Tensor:
     """dW [27, Ci, Co] float32 from x [B, D, H, W, Ci] and dy [B, D, H, W, Co]
     of x's dtype, by the 'workspace' scheme (per-slab partials, then a sum in
-    slab order) or the 'resident' scheme (one owner per dW tile, written
-    once); the plain version on a CPU tensor. Both schemes are deterministic.
-    """
+    slab order) or the 'resident' scheme (one cluster of CTAs per dW tile,
+    its partials added on chip and written once; in float32 one thread per
+    dW element); the plain version on a CPU tensor. Both schemes are
+    deterministic."""
     if scheme not in DW_SCHEMES:
         raise ValueError(f"scheme must be one of {DW_SCHEMES}, got {scheme!r}")
+    return _dw(x, dy, scheme, None)
+
+
+def conv3d_dw_resident_cluster(x: torch.Tensor, dy: torch.Tensor,
+                               cluster: int) -> torch.Tensor:
+    """The resident scheme in bf16 at a given cluster size (1 ..
+    DW_MAX_CLUSTER) in place of `dw_resident_plan`'s: for the checks that
+    need a size the plan would not pick, such as more CTAs than steps."""
+    if x.device.type != "cuda" or x.dtype != torch.bfloat16:
+        raise ValueError("a cluster size is a choice of the bf16 kernel: "
+                         f"got {x.dtype} on {x.device}")
+    return _dw(x, dy, "resident", cluster)
+
+
+def _dw(x, dy, scheme, cluster):
     if x.device.type == "cpu":
         return conv3d_dw_reference(x, dy)
     if x.device.type != "cuda":
@@ -199,9 +294,16 @@ def conv3d_dw(x: torch.Tensor, dy: torch.Tensor,
             err = getattr(lib, f"conv3d_dw_workspace_{kind}")(
                 x.data_ptr(), dy.data_ptr(), workspace.data_ptr(),
                 dw.data_ptr(), *dims, slabs, stream)
+        elif kind == "bf16":
+            if cluster is None:
+                cluster = dw_resident_plan(b * d * h * w, ci, co,
+                                           resident_clusters(x.device))["cluster"]
+            err = lib.conv3d_dw_resident_bf16(x.data_ptr(), dy.data_ptr(),
+                                              dw.data_ptr(), *dims, cluster,
+                                              stream)
         else:
-            err = getattr(lib, f"conv3d_dw_resident_{kind}")(
-                x.data_ptr(), dy.data_ptr(), dw.data_ptr(), *dims, stream)
+            err = lib.conv3d_dw_resident_f32(x.data_ptr(), dy.data_ptr(),
+                                             dw.data_ptr(), *dims, stream)
     if err:
         raise RuntimeError(f"conv3d dW kernel ({scheme}) launch failed: "
                            f"CUDA error {err}")

@@ -1,5 +1,7 @@
 """The CUDA 3³ conv kernels (forward/dx, dW by the workspace and the resident
-scheme) against their plain PyTorch versions, on the card.
+scheme) against their plain PyTorch versions, on the card; the resident
+scheme also at every kind of cluster size (more CTAs than steps among them)
+and the card's table of co-resident clusters it plans from.
 
 Marked `gpu`: each case skips without a CUDA device. This file imports
 nothing of JAX, so it also runs where JAX is not installed:
@@ -18,22 +20,26 @@ import numpy as np
 import pytest
 import torch
 
-from manigaussian_tpu_torch.ops.conv3d import (conv3d_dw, conv3d_dw_reference,
+from manigaussian_tpu_torch.ops.conv3d import (DW_MAX_CLUSTER, conv3d_dw,
+                                               conv3d_dw_reference,
                                                conv3d_dw_resident,
+                                               conv3d_dw_resident_cluster,
                                                conv3d_dw_workspace,
                                                conv3d_forward,
                                                conv3d_same_batched,
-                                               conv3d_same_reference)
+                                               conv3d_same_reference,
+                                               resident_clusters)
 
 TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-3, 2.0 ** -8)}
 
 # (B, D, H, W, Ci, Co): ragged volumes that divide by no tile, one voxel row
 # shorter than a tile, channel counts under and over a tile; a batch of 2
 # whose voxel tiles straddle the samples at full 128-channel tiles; 128 ↔ 256
-# channels (a forward and a dx over two 128-wide tiles of output channels)
+# channels (a forward and a dx over two 128-wide tiles of output channels);
+# 27 voxels, one step of the dW walk
 SHAPES = [(1, 5, 6, 7, 8, 16), (2, 9, 10, 11, 24, 40), (1, 12, 13, 14, 72, 136),
           (1, 3, 2, 1, 16, 8), (2, 12, 13, 14, 128, 128), (1, 6, 7, 9, 128, 256),
-          (1, 6, 7, 9, 256, 128)]
+          (1, 6, 7, 9, 256, 128), (1, 3, 3, 3, 64, 128)]
 
 
 def _inputs(shape, dtype, seed=0):
@@ -121,3 +127,52 @@ def test_cuda_conv_wrapper_refuses_what_the_kernels_do_not_take():
         conv3d_forward(x.float(), wm)               # mixed dtypes
     with pytest.raises(ValueError, match="scheme"):
         conv3d_dw(x, dy, scheme="atomic")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cluster", [1, 2, 3, 8, 9, DW_MAX_CLUSTER])
+@pytest.mark.parametrize("shape", [(1, 3, 3, 3, 64, 128), (1, 5, 6, 7, 8, 16),
+                                   (2, 12, 13, 14, 128, 128)])
+def test_cuda_resident_dw_at_every_cluster_size(shape, cluster):
+    """The resident kernel at a given cluster size, also where the cluster
+    has more CTAs than the walk has steps (27 and 210 voxels: 1 and 4 steps;
+    those CTAs write zeros and meet both cluster barriers): within tol of
+    the plain version, within 2·tol of the workspace scheme, the same bits
+    on a second run, one launch counted a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; runs on the card")
+    if resident_clusters(torch.device("cuda"))[cluster] < 1:
+        pytest.skip(f"this card holds no cluster of {cluster} resident CTAs")
+    x, _, dy = _inputs(shape, torch.bfloat16, seed=2)
+    _, wtol = TOL[torch.bfloat16]
+    before = conv3d_dw_resident.launches
+    got = conv3d_dw_resident_cluster(x, dy, cluster)
+    torch.cuda.synchronize()
+    assert conv3d_dw_resident.launches == before + 1
+    assert _rel(got, conv3d_dw_reference(x, dy)) <= wtol
+    assert _rel(got, conv3d_dw_workspace(x, dy)) <= 2 * wtol
+    assert torch.equal(conv3d_dw_resident_cluster(x, dy, cluster), got)
+
+
+@pytest.mark.gpu
+def test_cuda_resident_cluster_table_and_refused_sizes():
+    """The occupancy table the plan reads: every size 1 .. DW_MAX_CLUSTER,
+    one CTA an SM (clusters of 1 fill the card), never more CTAs than SMs,
+    fewer clusters as they grow. A size the kernel does not take raises;
+    nothing retries with another size."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; runs on the card")
+    table = resident_clusters(torch.device("cuda"))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert sorted(table) == list(range(1, DW_MAX_CLUSTER + 1))
+    assert table[1] == sms
+    assert all(table[s] * s <= sms for s in table)
+    assert all(table[s + 1] <= table[s] for s in range(1, DW_MAX_CLUSTER))
+    x, _, dy = _inputs((1, 4, 4, 4, 16, 16), torch.bfloat16)
+    before = conv3d_dw_resident.launches
+    for bad in (0, DW_MAX_CLUSTER + 1):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            conv3d_dw_resident_cluster(x, dy, bad)
+    with pytest.raises(ValueError, match="bf16 kernel"):
+        conv3d_dw_resident_cluster(x.float(), dy.float(), 2)
+    assert conv3d_dw_resident.launches == before
