@@ -15,12 +15,18 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                    dv against autograd of the plain version, bitwise
                    repeatable; in bf16 with dropout from those bits), with
                    ptxas's registers and spill of its three wgmma kernels;
+                   the forward with dropout on one rank's rows of a batch
+                   (`bh_offset`) against the plain version there and the
+                   whole batch's rows, bit for bit;
                    the tile blend forward and backward on the
                    tiles of real frames (16,384 random Gaussians in a 128²
                    view, binned by the port's rasterizer; batch 2; the micro
                    config's K 512 / chunk 32; empty tiles; 65,536
                    Gaussians at K 2048; the bench's own frame at K 8192 /
-                   chunk 512), each bitwise repeatable; `golden`: the
+                   chunk 512), each bitwise repeatable; one rank's window
+                   of the tile-sharded renderer (tiles 16-31 of the
+                   training frame) against the plain version and the whole
+                   frame's tiles, bit for bit; `golden`: the
                    JAX package's pinned frames (tests/goldens/*.npz, read with
                    numpy) rendered through the kernel route; `conv`: the 3³
                    conv forward, dx and dW (workspace and resident scheme, each
@@ -115,6 +121,19 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                    directly (its wall time, a finite 128² image), the
                    profile of 2 steps; `nerf_parts`: the NeRF's forward and
                    backward alone at that width, and its trilinear scatter.
+ 14. dino_dir    — the DINOv2 checkpoint-directory route: a tiny DINOv2
+                   written as a Hugging Face directory by the port's writer,
+                   loaded through `create_feature_extractor`, its features on
+                   the card against the CPU.
+ 15. dp_slice    — multi-device training through `python -m
+                   manigaussian_tpu_torch.train` at `w_geo` width, global
+                   batch 2, 3 steps: one process; `--mesh 2` and
+                   `--mesh-tile 2` (two ranks on the one card over gloo);
+                   `--mesh 1` over NCCL. Each rank's launches, its
+                   parameters equal to the others' bit for bit, the first
+                   step's losses against the one-process run, step times
+                   and peak memory (two ranks share one card: no scaling
+                   figure).
 Every training slice also holds the recon render at step 0
 (`render_for_vis`: the policy's forward, and one blend forward with the
 splat renderer) to its launches.
@@ -133,7 +152,9 @@ at full width on the card and on the CPU from the same weights and batch
 split by leaf group). `--embed-ab` builds the kernels and
 compares where the SD VAE's ground-truth embedding runs in `w_geo_sem_dyna`
 training (`embed_ab`: its prefetch thread on a stream of its own or on the
-default stream, the main thread, or no tower).
+default stream, the main thread, or no tower). `--step-times` times the
+one-process `w_geo` step and act at full width through `create_agent`,
+`update` and `act` only (`step_times`), for the same kind of A/B.
 
 Nothing of JAX is imported. Scratch files go under build/chip_smoke/ in the
 checkout. With no CUDA device, or without the package beside it, the script
@@ -387,6 +408,62 @@ def flash_checks() -> dict:
     return errs
 
 
+def flash_offset_check() -> dict:
+    """The flash forward on one rank's rows of a data-parallel batch: q, k,
+    v of rows 2-3 of a batch of 4 at [·, 8, 2048, 64] bf16 (and [·, 8, 512,
+    64] fp32), dropout 0.1, `bh_offset` = 2·8. The rank's output (and in
+    bf16 its keep bits) equals rows 2-3 of the kernel's call on the whole
+    batch bit for bit, and the plain version at the same offset within row
+    1's tolerance; in fp32, whose backward hashes the mask again, the rank's
+    dq, dk, dv equal the whole batch's rows bit for bit too."""
+    import torch
+    from manigaussian_tpu_torch.ops.flash_attention import (
+        flash_attention_forward, flash_self_attention_backward,
+        flash_self_attention_reference)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    out = {}
+    for dtype, n, tol in (("bfloat16", 2048, 2e-2), ("float32", 512, 1e-5)):
+        dt = getattr(torch, dtype)
+        q, k, v = (torch.randn(4, 8, n, 64, generator=gen, device="cuda").to(dt)
+                   for _ in range(3))
+        g = torch.randn(4, 8, n, 64, generator=gen, device="cuda").to(dt)
+        seed, rate, lo = 4321, 0.1, 2
+        whole, lse_w, bits_w = flash_attention_forward(q, k, v, rate, seed, 256,
+                                                       with_lse=True)
+        qr, kr, vr = (x[lo:].contiguous() for x in (q, k, v))
+        part, lse_p, bits_p = flash_attention_forward(qr, kr, vr, rate, seed,
+                                                      256, with_lse=True,
+                                                      bh_offset=lo * 8)
+        ref = flash_self_attention_reference(qr, kr, vr, rate, seed, 256,
+                                             bh_offset=lo * 8)
+        rows_equal = torch.equal(part, whole[lo:])
+        bits_equal = (bits_p is None and bits_w is None) or torch.equal(
+            bits_p, bits_w[lo * 8:])
+        err = (part.float() - ref.float()).abs().max().item()
+        extra = {}
+        if dtype == "float32":
+            gw = flash_self_attention_backward(q, k, v, whole, g, lse_w, rate,
+                                               seed, 256)
+            gp = flash_self_attention_backward(
+                qr, kr, vr, part, g[lo:].contiguous(), lse_p, rate, seed, 256,
+                bh_offset=lo * 8)
+            extra["bwd_rows_bitwise_equal"] = all(
+                torch.equal(a[lo:], b) for a, b in zip(gw, gp))
+        torch.cuda.synchronize()
+        ok = rows_equal and bits_equal and err <= tol and all(extra.values())
+        log("kernel_check", kernel="flash_self_attention_bh_offset",
+            dtype=dtype, shape=[2, 8, n, 64], rows_of=[4, 8, n, 64],
+            bh_offset=lo * 8, dropout=rate, rows_bitwise_equal=rows_equal,
+            keep_bits_equal=bits_equal, max_abs_err=err, tol=tol, **extra,
+            ok=ok)
+        if not ok:
+            raise AssertionError(f"flash bh_offset check failed ({dtype}): "
+                                 f"rows {rows_equal} bits {bits_equal} err "
+                                 f"{err} {extra}")
+        out[dtype] = err
+    return out
+
+
 def flash_times() -> dict:
     """The flash kernels' times at the policy's shape, [1, 8, 2048, 64] bf16,
     on the device reading (`device_ms`) with the host loop's beside it,
@@ -446,6 +523,7 @@ def phase_flash() -> dict:
     plain version; ptxas's registers and spill of the wgmma kernels; then
     their times at the policy's shape."""
     errs = flash_checks()
+    flash_offset_check()
     build = {k: ptxas_report("flash_attention", k) for k in FLASH_WGMMA_KERNELS}
     log("kernel_build", source="manigaussian_tpu_torch/csrc/flash_attention.cu",
         **build)
@@ -515,10 +593,12 @@ def phase_flash() -> dict:
     return {r["name"]: r for r in records}
 
 
-def random_frame(n: int = 16384, hw: int = 128, seed: int = 0):
+def random_frame(n: int = 16384, hw: int = 128, seed: int = 0,
+                 tile_range=None):
     """A real frame's blend inputs: n random Gaussians (the JAX tests'
     random_scene distribution, drawn with numpy) in front of a 128² camera,
-    binned and packed by the port's rasterizer on the card."""
+    binned and packed by the port's rasterizer on the card (only the tiles
+    of `tile_range`, a rank's window, when given)."""
     import numpy as np
     import torch
     from manigaussian_tpu_torch.ops import gaussian_math as gm
@@ -542,10 +622,10 @@ def random_frame(n: int = 16384, hw: int = 128, seed: int = 0):
     cfg = RasterizeConfig(width=hw, height=hw)
     pre = gm.preprocess(t(means), t(opac), cam, hw, hw, 16, scales=t(scales),
                         rotations=t(rots), shs=t(shs))
-    gidx, in_list, _, ov_s, ov_g = tile_lists(pre, cfg)
+    gidx, in_list, _, ov_s, ov_g = tile_lists(pre, cfg, tile_range)
     with torch.no_grad():
         counts, origins, attrs, livet = pack_tiles(pre, t(lang), gidx, in_list,
-                                                   cfg, 1)
+                                                   cfg, 1, tile_range)
     return counts, origins, attrs, livet, cfg, int(ov_s), int(ov_g)
 
 
@@ -665,6 +745,60 @@ def blend_cases():
             ("bench_k8192_chunk512", bench_frame()[0], 512, 65536)]
 
 
+def blend_window_check() -> None:
+    """The blend pair on one rank's window of the tile-sharded renderer:
+    tiles 16-31 of the 64-tile training frame (16,384 Gaussians, 128²),
+    binned and packed with `tile_range` (global pixel origins). The kernels'
+    outputs and the gradient of the window's attributes equal the same
+    tiles of the whole frame's kernel calls bit for bit, and the plain
+    version under the golden rules."""
+    import torch
+    from manigaussian_tpu_torch.ops.blend import (blend_tiles,
+                                                  blend_tiles_reference)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    whole = random_frame(16384, 128, 0)[:4]
+    part = random_frame(16384, 128, 0, tile_range=(16, 16))[:4]
+    gs = [torch.randn(64, c, 256, generator=gen, device="cuda") for c in (3, 3, 1)]
+    gw = [g[16:32] for g in gs]
+
+    def run(fn, frame, grads):
+        a = frame[2].clone().requires_grad_()
+        out = fn(frame[0], frame[1], a, frame[3], 3, 16, 256)
+        sum((o * g).sum() for o, g in zip(out, grads)).backward()
+        return [o.detach() for o in out], a.grad
+
+    out_w, grad_w = run(blend_tiles, whole, gs)
+    out_p, grad_p = run(blend_tiles, part, gw)
+    ref_p, rgrad_p = run(blend_tiles_reference, part, gw)
+    torch.cuda.synchronize()
+    # the packed inputs alike on the live slots (a slot past a tile's list
+    # holds whatever follows it in the sorted keys, which the window cuts)
+    live = whole[3][16:32] > 0.5
+    inputs_equal = (all(torch.equal(a, b[16:32]) for a, b in
+                        zip((part[0], part[1], part[3]),
+                            (whole[0], whole[1], whole[3])))
+                    and torch.equal(torch.where(live, part[2], 0.0),
+                                    torch.where(live, whole[2][16:32], 0.0)))
+    tiles_equal = all(torch.equal(a, b[16:32]) for a, b in zip(out_p, out_w))
+    grad_equal = torch.equal(grad_p, grad_w[16:32])
+    fwd = [mostly_close(o.cpu(), r.cpu(), 1e-4, 1e-3) for o, r in zip(out_p, ref_p)]
+    bwd = mostly_close(grad_p.cpu(), rgrad_p.cpu(), 2e-4, 1e-3, 0.02)
+    ok = (inputs_equal and tiles_equal and grad_equal and bwd[0]
+          and all(x[0] for x in fwd))
+    log("kernel_check", kernel="blend_tiles_window", frame="train_16384",
+        window=[16, 32], tiles=int(part[0].shape[0]),
+        origins_first=part[1][0].tolist(),
+        packed_live_slots_equal_whole=inputs_equal,
+        outputs_bitwise_equal_whole=tiles_equal,
+        dattrs_bitwise_equal_whole=grad_equal,
+        fwd_frac_outside_max_diff=[x[1:] for x in fwd],
+        bwd_frac_outside_max_diff=bwd[1:], ok=ok)
+    if not ok:
+        raise AssertionError(f"blend window check failed: packed "
+                             f"{inputs_equal} outputs {tiles_equal} grads "
+                             f"{grad_equal} fwd {fwd} bwd {bwd}")
+
+
 def phase_blend() -> dict:
     """The blend forward and backward against the plain version (through
     `blend_tiles` and autograd) on every frame of `blend_cases`, each kernel
@@ -734,6 +868,7 @@ def phase_blend() -> dict:
             errs = {"fwd": max(x[2] for x in fwd), "bwd": bwd[2]}
         if name in ("train_16384", "frame_65536", "bench_k8192_chunk512"):
             frames[name] = (counts, origins, attrs, livet, gs, chunk, n_gauss)
+    blend_window_check()
     phase_golden()
 
     records = {}
@@ -1907,8 +2042,8 @@ def phase_train_slice(counters: dict, variant: str = "w_geo", overrides=(),
         ex.embed_fn = timed_embed_fn
         return ex
 
-    def watched_render(self, params, cameras):
-        out = orig_render(self, params, cameras)
+    def watched_render(self, params, cameras, tile_mesh=None):
+        out = orig_render(self, params, cameras, tile_mesh)
         rendered.append(out[2:])
         return out
 
@@ -2270,6 +2405,241 @@ def phase_nerf_parts(batch, cfg) -> dict:
     return out
 
 
+def step_times(steps: int = 12, acts: int = 14) -> dict:
+    """The one-process `w_geo` training step and act at full width, batch 1,
+    through `create_agent`, `update` and `act` only (the public path, the
+    same in older checkouts), host clock around calls that end in a
+    device→host copy or a synchronize; medians after 2 steps / 4 acts. For
+    an A/B of two checkouts in one call (parent, change, change, parent)."""
+    import statistics
+
+    import numpy as np
+    import torch
+    from manigaussian_tpu_torch.agents.registry import create_agent
+    agent = create_agent(train_config("w_geo"), device="cuda", seed=0)
+    rng = np.random.default_rng(0)
+    f, b, hw = np.float32, 1, 128
+    batch = {
+        "rgb": rng.uniform(size=(b, 1, hw, hw, 3)).astype(f),
+        "pcd": (np.array([0.2, 0.0, 1.1]) + np.array([0.25, 0.35, 0.1])
+                * rng.standard_normal((b, 1, hw, hw, 3))).astype(f),
+        "low_dim_state": rng.standard_normal((b, 4)).astype(f),
+        "lang_goal_emb": (0.1 * rng.standard_normal((b, 1024))).astype(f),
+        "lang_token_embs": (0.1 * rng.standard_normal((b, 77, 512))).astype(f),
+        "trans_action_indicies": np.array([[50, 40, 60]] * b, np.int32),
+        "rot_grip_action_indicies": np.array([[10, 20, 30, 1]] * b, np.int32),
+        "ignore_collisions": np.ones((b, 1), np.int32),
+        "gripper_pose": np.tile(np.array([0.2, 0, 1.1, 0, 0, 0, 1.0], f), (b, 1)),
+        "action": np.zeros((b, 8), f),
+        "nerf_target_rgb": rng.uniform(size=(b, hw, hw, 3)).astype(f),
+        "nerf_target_pose": np.tile(np.eye(4, dtype=f), (b, 1, 1)),
+        "nerf_target_intrinsic": np.tile(np.array(
+            [[110.0, 0, 64], [0, 110.0, 64], [0, 0, 1]], f), (b, 1, 1)),
+    }
+    gen = torch.Generator().manual_seed(1)
+    step_ms, act_ms = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        float(agent.update(batch, gen)["total_loss"])
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    obs = {k: batch[k] for k in ("rgb", "pcd", "low_dim_state",
+                                 "lang_goal_emb", "lang_token_embs")}
+    for _ in range(acts):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        agent.act(obs)
+        torch.cuda.synchronize()
+        act_ms.append((time.perf_counter() - t0) * 1e3)
+    out = {"step_ms_median": statistics.median(step_ms[2:]),
+           "act_ms_median": statistics.median(act_ms[4:]),
+           "step_ms": step_ms, "act_ms": act_ms}
+    log("step_times", config="w_geo", batch=1, tree=ROOT, **out)
+    return out
+
+
+DINO_TOL = 1e-4
+
+
+def phase_dino_dir() -> dict:
+    """The DINOv2 checkpoint-directory route: a tiny DINOv2 (patch 14, width
+    64, 2 layers, a 5² position grid) with seeded random weights, written as
+    a Hugging Face directory by the port's own writer (`save_hf_dir`:
+    config.json, preprocessor_config.json, model.safetensors), loaded through
+    `create_feature_extractor("dinov2", <dir>)` on the card and on the CPU;
+    the features of two 128² views (resized to 112, cropped to 98: a 7²
+    patch grid, the position grid resized bicubically) agree within
+    DINO_TOL of their scale (fp32, TF32 off)."""
+    import numpy as np
+    import torch
+    from manigaussian_tpu_torch.models.dinov2 import (DinoV2DirExtractor,
+                                                      DinoV2ViT, save_hf_dir)
+    from manigaussian_tpu_torch.models.foundation import \
+        create_feature_extractor
+    gen = torch.Generator().manual_seed(0)
+    model = DinoV2ViT(patch_size=14, width=64, layers=2, heads=2, pos_grid=5)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            base = 1.0 if name.endswith("norm1.weight") or name.endswith(
+                "norm2.weight") or name == "norm.weight" else 0.0
+            p.copy_(base + 0.1 * torch.randn(p.shape, generator=gen))
+    path = os.path.join(WORK, "dinov2_dir")
+    save_hf_dir(path, model, size={"shortest_edge": 112},
+                crop_size={"height": 98, "width": 98})
+    rgb = torch.from_numpy(np.random.default_rng(0).uniform(
+        size=(2, 128, 128, 3)).astype(np.float32))
+    card = create_feature_extractor("dinov2", path, device="cuda")
+    cpu = create_feature_extractor("dinov2", path, device="cpu")
+    if not (isinstance(card, DinoV2DirExtractor)
+            and isinstance(cpu, DinoV2DirExtractor)):
+        raise AssertionError("the DINOv2 directory did not load as one")
+    fc = card(rgb.cuda())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fc = card(rgb.cuda())
+    torch.cuda.synchronize()
+    call_ms = (time.perf_counter() - t0) * 1e3
+    fp = cpu(rgb)
+    scale = float(fp.abs().max())
+    err = float((fc.cpu() - fp).abs().max())
+    ok = (tuple(fc.shape) == (2, 128, 128, 64) and bool(torch.isfinite(fc).all())
+          and err <= DINO_TOL * max(1.0, scale))
+    log("dino_dir", files=sorted(os.listdir(path)), shape=list(fc.shape),
+        max_abs_err_card_vs_cpu=err, scale=scale, tol=DINO_TOL,
+        call_ms=call_ms, ok=ok)
+    if not ok:
+        raise AssertionError(f"dino_dir: card against CPU {err} (scale "
+                             f"{scale}), shape {tuple(fc.shape)}")
+    return {"max_abs_err": err}
+
+
+# The multi-device runs of `dp_slice` (w_geo at full width, global batch 2,
+# DP_STEPS steps), each through `python -m manigaussian_tpu_torch.train`:
+# one process; `--mesh 2` and `--mesh-tile 2`, two ranks on the one card
+# over gloo (NCCL refuses two ranks on one GPU); `--mesh 1` over NCCL.
+DP_RUNS = (("one_process", []),
+           ("mesh2_gloo", ["--mesh", "2", "--backend", "gloo"]),
+           ("mesh_tile2_gloo", ["--mesh-tile", "2", "--backend", "gloo"]),
+           ("mesh1_nccl", ["--mesh", "1"]))
+DP_STEPS = 3
+# first-step losses of a sharded run against the one-process run, relative
+# to max(1, |x|): bf16 policy matmuls on other row counts. Set from the first
+# run on the card (NVIDIA H100 80GB HBM3, 700.00 W): the worst head was
+# collision_loss at 9.6e-3 (--mesh 2); the tile-sharded run's first step
+# equalled the one-process run's bit for bit
+DP_TOL = 2e-2
+DP_HEADS = ("total_loss", "bc_loss", "trans_loss", "rot_loss", "grip_loss",
+            "collision_loss", "rgb_loss", "psnr")
+
+
+def run_cli(args, timeout: float):
+    """`python <args>` from the repository root in a session of its own;
+    on a timeout the whole session (the CLI's worker processes too) is
+    killed. Returns (returncode, stdout, stderr)."""
+    import signal
+    proc = subprocess.Popen([sys.executable, *args], cwd=ROOT, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        raise AssertionError(f"{args} ran past {timeout} s:\n{out[-2000:]}"
+                             f"\n{err[-2000:]}")
+    return proc.returncode, out, err
+
+
+def run_lines(out: str) -> list:
+    """The `[train] run {...}` JSON objects in a CLI's output (ranks share
+    the stream, so a line may hold two)."""
+    dec, tag, found, at = json.JSONDecoder(), "[train] run ", [], 0
+    while (at := out.find(tag, at)) >= 0:
+        obj, end = dec.raw_decode(out, at + len(tag))
+        found.append(obj)
+        at = end
+    return found
+
+
+def phase_dp_slice(demos: str) -> dict:
+    """Multi-device training through the train entry point (`DP_RUNS`): every
+    run's CSV finite; every rank's kernel launches exactly a step's
+    (`expected_launches`, the flash and blend kernels: a tile rank blends its
+    window of 32 tiles, one launch each way) times DP_STEPS, plus the recon
+    render's on rank 0; every rank's parameters equal to the others' bit for
+    bit after the last step; the first step's losses of each sharded run
+    within DP_TOL of the one-process run's. Logged: each run's step time
+    (its CSV's last step), each rank's peak memory, the backend, the card's
+    name and power limit. Two ranks share one card here: these times are
+    not a scaling figure."""
+    import csv
+    import numpy as np
+    cfg = train_config("w_geo")
+    m = cfg.method
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip()
+    base = ["-m", "manigaussian_tpu_torch.train", "--variant", "w_geo",
+            "--demo-root", demos, *TRAIN_OVERRIDES, "replay.batch_size=2",
+            f"framework.training_iterations={DP_STEPS}"]
+    step = {}
+    for s in range(DP_STEPS):
+        for k, v in expected_launches(m, s).items():
+            step[k] = step.get(k, 0) + v
+    vis = expected_vis_launches(m)
+    runs, launches_by_run = {}, {}
+    for name, flags in DP_RUNS:
+        logdir = os.path.join(WORK, f"dp_{name}")
+        t0 = time.time()
+        rc, out, err = run_cli([*base, "--logdir", logdir, *flags], 900)
+        wall = time.time() - t0
+        if rc:
+            raise AssertionError(f"dp_slice {name}: exit {rc}\n{out[-3000:]}"
+                                 f"\n{err[-3000:]}")
+        ranks = sorted(run_lines(out), key=lambda r: r["rank"])
+        with open(os.path.join(logdir, "seed0", "train_data.csv")) as f:
+            rows = list(csv.DictReader(f))
+        world = ranks[0]["world"] if ranks else 0
+        expect = [{k: step[k] + (vis[k] if r == 0 else 0) for k in step}
+                  for r in range(world)]
+        got = [r["kernel_launches"] for r in ranks]
+        finite = all(np.isfinite(float(v)) for row in rows for v in row.values())
+        runs[name] = {
+            "world": world, "backend": ranks[0]["backend"] if ranks else None,
+            "first_step": {k: float(rows[0][k]) for k in DP_HEADS},
+            "step_ms": [1e3 / float(r["steps_per_s"]) for r in rows[1:]],
+            "peak_bytes": [r["peak_bytes"] for r in ranks],
+            "params_equal_across_ranks": [r["params_equal_across_ranks"]
+                                          for r in ranks],
+            "launches": got, "wall_s": wall}
+        launches_by_run[name] = got[0] if got else {}
+        ok = (len(ranks) == world >= 1 and len(rows) == DP_STEPS and finite
+              and got == expect
+              and all(r["params_equal_across_ranks"] is not False
+                      for r in ranks)
+              and (world == 1 or all(r["params_equal_across_ranks"]
+                                     for r in ranks)))
+        log("dp_slice", run=name, flags=flags, card=smi, **runs[name],
+            expected_launches=expect, csv_rows=len(rows), finite=finite, ok=ok)
+        if not ok:
+            raise AssertionError(f"dp_slice {name}: {runs[name]}, expected "
+                                 f"launches {expect}, rows {len(rows)}, "
+                                 f"finite {finite}\n{out[-2000:]}")
+    ref = runs["one_process"]["first_step"]
+    diffs = {name: {k: abs(r["first_step"][k] - ref[k]) / max(1.0, abs(ref[k]))
+                    for k in DP_HEADS}
+             for name, r in runs.items() if name != "one_process"}
+    worst = max(max(d.values()) for d in diffs.values())
+    ok = worst <= DP_TOL
+    log("dp_slice", check="first_step_losses_vs_one_process", card=smi,
+        rel_diff=diffs, worst=worst, tol=DP_TOL,
+        rule="|x − x_one| ≤ tol·max(1, |x_one|)", ok=ok)
+    if not ok:
+        raise AssertionError(f"dp_slice: first-step losses off by {worst}: "
+                             f"{diffs}")
+    return {"launches": launches_by_run, "runs": runs}
+
+
 def gnf_steps(devices=("cuda", "cpu"), steps: int = 2) -> dict:
     """GNFACTOR_BC at `gnf_slice`'s width: the same seeded weights and the
     same first batch through `update` on each of `devices` (the kernels on
@@ -2497,10 +2867,10 @@ def embed_ab(rounds: int = 3, steps: int = 5) -> dict:
 
 def main(argv) -> int:
     if argv not in ([], ["--flash-times"], ["--blend-times"], ["--embed-ab"],
-                    ["--conv-times"], ["--gnf-steps"]):
+                    ["--conv-times"], ["--gnf-steps"], ["--step-times"]):
         print(f"chip_smoke: unknown arguments {argv}; takes none, "
-              "--flash-times, --blend-times, --conv-times, --embed-ab or "
-              "--gnf-steps", file=sys.stderr)
+              "--flash-times, --blend-times, --conv-times, --embed-ab, "
+              "--gnf-steps or --step-times", file=sys.stderr)
         return 2
     try:
         import torch
@@ -2555,6 +2925,11 @@ def main(argv) -> int:
         phase_build()
         conv_times()
         return 0
+    if argv == ["--step-times"]:
+        # the one-process step and act alone, for the same kind of A/B
+        phase_build()
+        step_times()
+        return 0
     if argv == ["--gnf-steps"]:
         # GNFACTOR_BC's first steps at full width, card against CPU
         phase_build()
@@ -2601,6 +2976,8 @@ def main(argv) -> int:
         {"kernel": ({"policy_attn_impl": "flash"}, {}),
          "plain": ({"policy_attn_impl": "xla"}, {})}, "kernel", vis=True)
     phase_nerf_parts(gr["batch"], gr["cfg"])
+    phase_dino_dir()
+    dp = phase_dp_slice(tr["demos"])
     # launches on the main paths, each read just after its run: the full
     # model's training run (`launches`: w_geo_sem_dyna, the one path that
     # launches every kernel of the paths), and every path by name, the bench
@@ -2615,7 +2992,17 @@ def main(argv) -> int:
              "train_w_geo_sem_dyna": se["launches"],
              "act_w_geo_sem_dyna": se["act_launches"],
              "bench": bn["launches"], "train_gnfactor_bc": gn["launches"],
-             "act_gnfactor_bc": gn["act_launches"]}
+             "act_gnfactor_bc": gn["act_launches"],
+             **{f"train_w_geo_{run}_rank0": c
+                for run, c in dp["launches"].items()}}
+    # every kernel of a dp_slice run's path (the flash and blend pairs) was
+    # launched there (phase_dp_slice also holds each rank to its count)
+    for run, c in dp["launches"].items():
+        idle = [k for k in ("flash_self_attention_fwd",
+                            "flash_self_attention_bwd", "blend_fwd",
+                            "blend_bwd") if not c.get(k)]
+        if idle:
+            raise AssertionError(f"dp_slice {run} never launched {idle}")
     off_path = {"conv3d_dw_resident"}
     for name, rec in records.items():
         rec["launches"] = se["launches"][name]

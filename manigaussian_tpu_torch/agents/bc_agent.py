@@ -9,6 +9,14 @@ is functional (params and optimizer state are passed in and returned);
 here the agent owns its QFunction module, its LAMB state and its step
 count. Weights come from a seed (`torch.Generator`), a checkpoint, or
 `convert.py`.
+
+Multi-device: `update(..., mesh=)` runs one rank's share of a sharded step
+(with a "data" axis, its rows of the global batch;
+`parallel/train_sharded.py`): every draw is made for the global batch, the
+gradients are averaged over the mesh's ranks before LAMB and the metrics
+reduced over the data group. `tile_mesh` (JAX
+`ManiGaussianBCAgent(tile_mesh=)`) shards the splat renderer's tiles in
+`update`; `act` and `render_for_vis` render without it.
 """
 
 from __future__ import annotations
@@ -28,6 +36,8 @@ from manigaussian_tpu_torch.ops.augmentation import (SE3Draws,
                                                      apply_se3_augmentation,
                                                      sample_se3_draws)
 from manigaussian_tpu_torch.ops.rotation import discrete_euler_to_quaternion
+from manigaussian_tpu_torch.parallel.train_sharded import (average_gradients,
+                                                           reduce_metrics)
 from manigaussian_tpu_torch.rendering.neural_renderer import RenderResult
 from manigaussian_tpu_torch.utils.device import DeviceLike, resolve_device
 from manigaussian_tpu_torch.utils.optimizers import Lamb, warmup_cosine_schedule
@@ -71,9 +81,10 @@ class ManiGaussianBCAgent:
     `update`), the optimizer and the step count."""
 
     def __init__(self, cfg: ManiGaussianConfig, device: DeviceLike = None,
-                 seed: int = 0):
+                 seed: int = 0, tile_mesh=None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.tile_mesh = tile_mesh
         # weights are drawn on the CPU so one seed gives one net on any device
         self.qfn = initialize(QFunction(cfg.method),
                               torch.Generator().manual_seed(seed))
@@ -90,12 +101,16 @@ class ManiGaussianBCAgent:
         return self.opt
 
     def update(self, batch: Dict, generator: torch.Generator,
-               draws: Optional[SE3Draws] = None) -> Dict[str, torch.Tensor]:
+               draws: Optional[SE3Draws] = None,
+               mesh=None) -> Dict[str, torch.Tensor]:
         """One BC step (JAX `update`): normalize; the augmentation draws
         (from `generator`, or `draws` as given) and their application; the
         forward in train mode (dropout from `generator`); the loss dict with
         the JAX metric names; backward; the clip and LAMB step. `batch` holds
         numpy arrays or tensors (the schema of data/pipeline.assemble_batch).
+        With `mesh`, `batch` is this rank's rows of the global batch and
+        `draws` (when given) the global batch's; the gradients are averaged
+        over the mesh's ranks and the metrics reduced over its data group.
         Returns the metrics as 0-d tensors on the device (no host sync).
         The three stages are named ranges for torch.profiler
         ("update/forward", "update/backward", "update/optimizer")."""
@@ -111,9 +126,13 @@ class ManiGaussianBCAgent:
         action_trans = b["trans_action_indicies"][:, :3]
         action_rot_grip = b["rot_grip_action_indicies"]
         if m.apply_se3:
+            nb = pcd.shape[0]
+            rows = None if mesh is None else mesh.rows(nb)
             if draws is None:
-                draws = sample_se3_draws(generator, pcd.shape[0], m.aug_rpy,
-                                         m.rotation_resolution)
+                draws = sample_se3_draws(generator, rows.total if rows else nb,
+                                         m.aug_rpy, m.rotation_resolution)
+            if rows is not None:   # [K, B, 3]: the rank's rows of the batch
+                draws = SE3Draws(*(d.narrow(1, rows.lo, nb) for d in draws))
             out = apply_se3_augmentation(
                 draws, pcd, b["gripper_pose"].float(), action_trans,
                 action_rot_grip, self.bounds, trans_aug_range=m.aug_xyz,
@@ -126,17 +145,21 @@ class ManiGaussianBCAgent:
         with record_function("update/forward"):
             self.qfn.train()
             total, metrics = self._losses(b, rgb, pcd, action_trans,
-                                          action_rot_grip, generator)
+                                          action_rot_grip, generator, mesh)
             self.qfn.eval()
         opt.zero_grad()
         with record_function("update/backward"):
             total.backward()
+            if mesh is not None:
+                average_gradients(opt.params, mesh)
         with record_function("update/optimizer"):
             opt.step()
         self.step += 1
-        return {k: v.detach() for k, v in metrics.items()}
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        return metrics if mesh is None else reduce_metrics(metrics, mesh)
 
-    def _losses(self, b, rgb, pcd, action_trans, action_rot_grip, generator):
+    def _losses(self, b, rgb, pcd, action_trans, action_rot_grip, generator,
+                mesh=None):
         """The train-mode forward and the loss dict (JAX `loss_fn`)."""
         m = self.cfg.method
         nrot = int(360 // m.rotation_resolution)
@@ -146,7 +169,7 @@ class ManiGaussianBCAgent:
                      b["lang_goal_emb"].float(), b["lang_token_embs"].float(),
                      self.bounds, use_neural_rendering=m.use_neural_rendering,
                      step=self.step, deterministic=False, generator=generator,
-                     **nerf)
+                     mesh=mesh, tile_mesh=self.tile_mesh, **nerf)
         bs = q.q_trans.shape[0]
         at = action_trans.long()
         trans_idx = (at[:, 0] * v + at[:, 1]) * v + at[:, 2]

@@ -7,6 +7,11 @@ the perceiver call (:150-156), the Gaussian renderer branch (:114-129,
 `choose_highest_action` (:218-237). One module owns the policy (`qnet`) and,
 when the config renders, the renderer (`neural_renderer`), as the JAX
 parameter tree does. The voxel grid carries no gradient (`qfunction.py:151`).
+
+Multi-device: `mesh` is a sharded step's mesh, on this rank's rows of
+the global batch (the dropout and NeRF draws are made for the global batch,
+the renderers' batch statistics taken over the data group); `tile_mesh`
+shards the splat renderer's image tiles (JAX `QFunction(tile_mesh=)`).
 """
 
 from __future__ import annotations
@@ -124,19 +129,21 @@ class QFunction(nn.Module):
                 nerf_next_target_pose=None, nerf_next_target_intrinsic=None,
                 gt_embed=None, action=None, step: int = 0,
                 deterministic: bool = True,
-                generator: Optional[torch.Generator] = None) -> QOutput:
+                generator: Optional[torch.Generator] = None, mesh=None,
+                tile_mesh=None) -> QOutput:
         with torch.no_grad():
             voxel_grid = build_voxel_grid(pcd, rgb, bounds,
                                           self.cfg.voxel_sizes[0])
+        rows = None if mesh is None else mesh.rows(rgb.shape[0])
         q_trans, q_rot_grip, q_coll, d0, _lang = self.qnet(
             voxel_grid, proprio, lang_goal_emb, lang_token_embs,
-            deterministic=deterministic, generator=generator)
+            deterministic=deterministic, generator=generator, rows=rows)
         render_losses = render_result = None
         if (use_neural_rendering
                 and isinstance(self.neural_renderer, GNFactorNeRFRenderer)):
             render_losses, render_result = self._nerf_branch(
                 d0, nerf_target_rgb, nerf_target_pose, nerf_target_intrinsic,
-                gt_embed, deterministic, generator)
+                gt_embed, deterministic, generator, rows, mesh)
         elif use_neural_rendering and self.neural_renderer is not None:
             # front camera only (qattention:252-258)
             front_pcd = pcd[:, 0].reshape(pcd.shape[0], -1, 3)
@@ -147,12 +154,13 @@ class QFunction(nn.Module):
                 next_gt_pose=nerf_next_target_pose,
                 next_gt_intrinsic=nerf_next_target_intrinsic,
                 gt_embed=gt_embed, action=action, step=step,
-                training=nerf_target_rgb is not None)
+                training=nerf_target_rgb is not None, mesh=mesh,
+                tile_mesh=tile_mesh)
         return QOutput(q_trans, q_rot_grip, q_coll, voxel_grid,
                        render_losses, render_result)
 
     def _nerf_branch(self, d0, gt_rgb, gt_pose, gt_intrinsic, gt_embed,
-                     deterministic: bool, generator):
+                     deterministic: bool, generator, rows=None, mesh=None):
         """The GNFactor auxiliary loss: volume-render a random ray chunk
         against the target view, returned as the splat path's RenderLosses
         (zero dyna loss and overflow counts). Without a target image but with
@@ -178,7 +186,7 @@ class QFunction(nn.Module):
         if not have_embed:
             gt_embed = gt_rgb.new_zeros(*gt_rgb.shape[:3], renderer.d_embed)
         nl = renderer(d0, gt_rgb, gt_pose, gt_intrinsic, gt_embed, generator,
-                      training=not deterministic)
+                      training=not deterministic, rows=rows, mesh=mesh)
         zero = nl.loss.new_zeros(())
         loss_rgb = nl.loss_rgb_coarse + nl.loss_rgb_fine
         losses = RenderLosses(

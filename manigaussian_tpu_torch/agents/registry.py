@@ -17,15 +17,19 @@ from manigaussian_tpu_torch.utils.device import DeviceLike
 
 
 def create_agent(cfg: ManiGaussianConfig, device: DeviceLike = None,
-                 seed: int = 0) -> ManiGaussianBCAgent:
+                 seed: int = 0, tile_mesh=None) -> ManiGaussianBCAgent:
+    """The agent of `cfg.method.name`; `tile_mesh` shards the splat
+    renderer's image tiles in training (JAX `create_agent(tile_mesh=)`)."""
     name = cfg.method.name
     if name == "ManiGaussian_BC":
-        return ManiGaussianBCAgent(cfg, device=device, seed=seed)
+        return ManiGaussianBCAgent(cfg, device=device, seed=seed,
+                                   tile_mesh=tile_mesh)
     if name == "PERACT_BC":
         cfg = dataclasses.replace(
             cfg, method=dataclasses.replace(cfg.method,
                                             use_neural_rendering=False))
-        return ManiGaussianBCAgent(cfg, device=device, seed=seed)
+        return ManiGaussianBCAgent(cfg, device=device, seed=seed,
+                                   tile_mesh=tile_mesh)
     if name == "GNFACTOR_BC":
         nr = dataclasses.replace(cfg.method.neural_renderer,
                                  renderer_type="nerf", use_dynamic_field=False)
@@ -33,5 +37,6 @@ def create_agent(cfg: ManiGaussianConfig, device: DeviceLike = None,
             cfg, method=dataclasses.replace(cfg.method,
                                             use_neural_rendering=True,
                                             neural_renderer=nr))
-        return ManiGaussianBCAgent(cfg, device=device, seed=seed)
+        return ManiGaussianBCAgent(cfg, device=device, seed=seed,
+                                   tile_mesh=tile_mesh)
     raise ValueError(f"Method {name} does not exist.")

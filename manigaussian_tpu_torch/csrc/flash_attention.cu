@@ -20,7 +20,11 @@
 // col·0x85EBCA77, the row part (seed + (bh·65536 + i)·2654435761) ^
 // r·0x9E3779B1: the kernels compute it once per row and the column part once
 // per key (the forward's producer warp writes a tile's beside its copies), so
-// no division sits in an inner loop (`Dropout` has the rest). The row sum of the online softmax adds the unmasked
+// no division sits in an inner loop (`Dropout` has the rest). `bh` is the
+// global batch·head index: a call that holds the rows of one rank of a
+// data-parallel batch passes its first global row × heads as `bh_offset`,
+// which the row part adds to the kernel's own bh, so that each rank drops
+// what the one-device call drops on the same rows. The row sum of the online softmax adds the unmasked
 // probabilities; only the P·V product sees the mask, and 1/(1-rate) is
 // applied with the final normalisation.
 //
@@ -129,6 +133,7 @@ struct Dropout {
   bool on;
   uint32_t seed;
   uint32_t thresh;
+  uint32_t bh0;  // the global batch·head index of this call's head 0
   int block_q;
   float scale;  // 1 / (1 - rate)
 
@@ -136,7 +141,7 @@ struct Dropout {
   __device__ __forceinline__ uint32_t row_mix(int bh, int row) const {
     const uint32_t i = static_cast<uint32_t>(row / block_q);
     const uint32_t r = static_cast<uint32_t>(row % block_q);
-    const uint32_t h = (seed + (static_cast<uint32_t>(bh) * 65536u + i) * 2654435761u) ^
+    const uint32_t h = (seed + ((static_cast<uint32_t>(bh) + bh0) * 65536u + i) * 2654435761u) ^
                        (r * 0x9E3779B1u);
     return h ^ (h >> 16);
   }
@@ -1141,11 +1146,13 @@ __global__ void __launch_bounds__(kF32Rows)
   }
 }
 
-Dropout make_dropout(float rate, unsigned seed, unsigned thresh, int block_q) {
+Dropout make_dropout(float rate, unsigned seed, unsigned thresh, int block_q,
+                     int bh_offset) {
   Dropout drop;
   drop.on = rate > 0.f;
   drop.seed = seed;
   drop.thresh = thresh;
+  drop.bh0 = static_cast<uint32_t>(bh_offset);
   drop.block_q = block_q > 0 ? block_q : 1;
   drop.scale = drop.on ? 1.f / (1.f - rate) : 1.f;
   return drop;
@@ -1266,16 +1273,18 @@ void bwd_f32(int bh, cudaStream_t st, const void* q, const void* k,
 // Plain C interface (bound with ctypes). Pointers to contiguous [bh, n, d]
 // tensors on the device (lse, delta: [bh, n] fp32; lse may be null in the
 // forward; keep_bits: [bh, n, ⌈n/128⌉·4] uint32, may be null); `thresh` =
-// min(rate·2^32, 2^32-1) and `seed` as in the TPU kernel's mask. Each returns
+// min(rate·2^32, 2^32-1) and `seed` as in the TPU kernel's mask; `bh_offset`
+// is added to every head's index in the mask's hash (0 for a whole batch).
+// The bf16 backward reads the forward's bits and hashes nothing. Each returns
 // cudaGetLastError() after its launches, or cudaErrorInvalidValue for a head
 // dim without an instantiation or a tensor map that cannot be made.
 extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
                               void* out, void* lse, void* keep_bits, int bh,
                               int n, int d, float scale, float rate,
                               unsigned seed, unsigned thresh, int block_q,
-                              void* stream) {
+                              int bh_offset, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Dropout drop = make_dropout(rate, seed, thresh, block_q);
+  const Dropout drop = make_dropout(rate, seed, thresh, block_q, bh_offset);
   if (keep_bits != nullptr && (lse == nullptr || !drop.on))
     return static_cast<int>(cudaErrorInvalidValue);
   switch (d) {
@@ -1289,10 +1298,11 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
 extern "C" int flash_fwd_f32(const void* q, const void* k, const void* v,
                              void* out, void* lse, int bh, int n, int d,
                              float scale, float rate, unsigned seed,
-                             unsigned thresh, int block_q, void* stream) {
+                             unsigned thresh, int block_q, int bh_offset,
+                             void* stream) {
   dim3 grid((n + kBlockM - 1) / kBlockM, bh);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Dropout drop = make_dropout(rate, seed, thresh, block_q);
+  const Dropout drop = make_dropout(rate, seed, thresh, block_q, bh_offset);
   switch (d) {
     case 8: fwd_f32<8>(grid, st, q, k, v, out, lse, n, scale, drop); break;
     case 16: fwd_f32<16>(grid, st, q, k, v, out, lse, n, scale, drop); break;
@@ -1313,9 +1323,9 @@ extern "C" int flash_bwd_bf16(const void* q, const void* k, const void* v,
                               const void* keep_bits, void* dq, void* dk,
                               void* dv, int bh, int n, int d, float scale,
                               float rate, unsigned seed, unsigned thresh,
-                              int block_q, void* stream) {
+                              int block_q, int bh_offset, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Dropout drop = make_dropout(rate, seed, thresh, block_q);
+  const Dropout drop = make_dropout(rate, seed, thresh, block_q, bh_offset);
   if ((keep_bits != nullptr) != drop.on) return static_cast<int>(cudaErrorInvalidValue);
   switch (d) {
     case 16: return bwd_bf16<16>(bh, n, st, q, k, v, out, dout, lse, delta, qs,
@@ -1333,9 +1343,9 @@ extern "C" int flash_bwd_f32(const void* q, const void* k, const void* v,
                              const void* lse, void* delta, void* dq, void* dk,
                              void* dv, int bh, int n, int d, float scale,
                              float rate, unsigned seed, unsigned thresh,
-                             int block_q, void* stream) {
+                             int block_q, int bh_offset, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Dropout drop = make_dropout(rate, seed, thresh, block_q);
+  const Dropout drop = make_dropout(rate, seed, thresh, block_q, bh_offset);
   if (d != 8 && d != 16 && d != 32 && d != 64) return static_cast<int>(cudaErrorInvalidValue);
   const int rows = bh * n;
   float* del = static_cast<float*>(delta);

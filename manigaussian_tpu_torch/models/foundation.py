@@ -299,8 +299,9 @@ def create_feature_extractor(name: Optional[str],
     """The factory of cfg.method.neural_renderer.foundation_model_name
     (None / 'diffusion' / 'dinov2') and its `foundation_checkpoint`, with the
     JAX package's routes and warnings:
-      * 'dinov2' + a torch-hub `.pt` file → DinoV2Extractor; a directory
-        (JAX: `transformers`) raises (ROADMAP A.3); none → the stub, warned;
+      * 'dinov2' + a torch-hub `.pt` file → DinoV2Extractor; a local
+        Hugging Face directory → DinoV2DirExtractor (read without
+        `transformers`); none → the stub, warned;
       * 'diffusion' + "random-init" → the SD VAE with random weights (the
         real compute, features not semantic); + a CompVis checkpoint file →
         the SD VAE; none → the stub, warned;
@@ -312,13 +313,14 @@ def create_feature_extractor(name: Optional[str],
         if checkpoint_dir and os.path.isfile(checkpoint_dir):
             from manigaussian_tpu_torch.models.dinov2 import DinoV2Extractor
             return DinoV2Extractor(checkpoint_dir, device=device)
+        if checkpoint_dir and os.path.isdir(checkpoint_dir):
+            from manigaussian_tpu_torch.models.dinov2 import \
+                DinoV2DirExtractor
+            return DinoV2DirExtractor(checkpoint_dir, device=device)
         if checkpoint_dir:
-            raise NotImplementedError(
-                f"foundation_checkpoint={checkpoint_dir!r} is not a file: a "
-                "DINOv2 checkpoint directory loads through `transformers`, "
-                "which the port does not use yet (ROADMAP A.3, with the "
-                "transformers language providers); pass a torch-hub .pt "
-                "state dict")
+            raise FileNotFoundError(
+                f"foundation_checkpoint={checkpoint_dir!r} is neither a "
+                "torch-hub state dict file nor a DINOv2 directory")
         warnings.warn(
             "foundation_model_name='dinov2' without a checkpoint: semantic "
             "supervision falls back to StubFeatureExtractor statistics, NOT "

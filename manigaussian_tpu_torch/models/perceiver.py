@@ -20,7 +20,11 @@ explicit CPU `torch.Generator`: the flash path takes a seed in
 [0, 2³¹−1) per call for the kernel's hashed mask (`perceiver.py:82-84`);
 the plain path (at w_geo the cross attention, rate `input_dropout`) a
 Bernoulli keep mask on the probabilities, from a device generator seeded
-from the same generator.
+from the same generator. On one rank of a data-parallel batch (`rows`, its
+place in the global batch) both are drawn for the global batch: the plain
+mask at the global shape, of which the rank keeps its rows, and the flash
+seed as it is, with the rank's first global row × heads as the kernel's
+`bh_offset`; so every rank drops what the one-process step drops.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from manigaussian_tpu_torch.models.blocks import (ChannelProjectConv3D,
                                                   spatial_softmax3d_with_max)
 from manigaussian_tpu_torch.models.unet3d import VoxelUNetShallow
 from manigaussian_tpu_torch.ops.flash_attention import flash_self_attention
+from manigaussian_tpu_torch.parallel.distributed import Rows, global_draw
 
 
 def flash_block_q(n: int) -> int:
@@ -60,7 +65,8 @@ class Attention(nn.Module):
         self.dropout = dropout
 
     def forward(self, x, context=None, deterministic: bool = True,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                rows: Optional[Rows] = None):
         is_self = context is None
         context = x if is_self else context
         q = self.to_q(x)
@@ -80,9 +86,10 @@ class Attention(nn.Module):
             if rate > 0.0:
                 seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
                                      dtype=torch.int32)
-            out = flash_self_attention(q.contiguous(), k.contiguous(),
-                                       v.contiguous(), dropout_rate=rate,
-                                       dropout_seed=seed, block_q=bq)
+            out = flash_self_attention(
+                q.contiguous(), k.contiguous(), v.contiguous(),
+                dropout_rate=rate, dropout_seed=seed, block_q=bq,
+                bh_offset=rows.lo * self.heads if rows else 0)
         else:
             scale = torch.tensor(self.dim_head ** -0.5, dtype=q.dtype,
                                  device=q.device)
@@ -90,21 +97,25 @@ class Attention(nn.Module):
                                   k.float().transpose(-1, -2))
             attn = torch.softmax(logits, dim=-1)
             if rate > 0.0:
-                attn = _dropout(attn, rate, generator)
+                attn = _dropout(attn, rate, generator, rows)
             out = torch.matmul(attn.to(v.dtype).float(), v.float())
         b, _, n, _ = out.shape
         out = out.permute(0, 2, 1, 3).reshape(b, n, self.heads * self.dim_head)
         return self.to_out(out)
 
 
-def _dropout(x: torch.Tensor, rate: float,
-             generator: torch.Generator) -> torch.Tensor:
+def _dropout(x: torch.Tensor, rate: float, generator: torch.Generator,
+             rows: Optional[Rows] = None) -> torch.Tensor:
     """flax nn.Dropout: keep with probability 1 - rate, kept values scaled
     by 1/(1 - rate); the mask is drawn on x's device from a generator seeded
-    by `generator`."""
+    by `generator`, for the global batch when `rows` places x's rows in
+    it."""
     dev_gen = torch.Generator(device=x.device).manual_seed(
         int(torch.randint(0, 2 ** 62, (1,), generator=generator)))
-    keep = torch.rand(x.shape, generator=dev_gen, device=x.device) < 1.0 - rate
+    keep = global_draw(lambda n: torch.rand((n,) + x.shape[1:],
+                                            generator=dev_gen,
+                                            device=x.device),
+                       x.shape[0], rows) < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
@@ -134,10 +145,11 @@ class PreNormAttention(nn.Module):
                               dropout=dropout, dtype=dtype, impl=impl)
 
     def forward(self, x, context=None, deterministic: bool = True,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                rows: Optional[Rows] = None):
         cn = None if self.norm_context is None else self.norm_context(context)
         return self.attn(self.norm(x), context=cn, deterministic=deterministic,
-                         generator=generator)
+                         generator=generator, rows=rows)
 
 
 class PreNormFF(nn.Module):
@@ -234,9 +246,13 @@ class PerceiverVoxelLangEncoder(nn.Module):
 
     def forward(self, voxel_grid, proprio, lang_goal_emb, lang_token_embs,
                 deterministic: bool = True,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                rows: Optional[Rows] = None):
+        """`rows`: this rank's place in a data-parallel global batch, for
+        the dropout draws (None: the batch is the whole batch)."""
         b = voxel_grid.shape[0]
-        drop = dict(deterministic=deterministic, generator=generator)
+        drop = dict(deterministic=deterministic, generator=generator,
+                    rows=rows)
         s = self.spatial
         if self.no_language:
             lang_token_embs = torch.zeros_like(lang_token_embs)

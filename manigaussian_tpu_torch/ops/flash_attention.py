@@ -20,6 +20,12 @@ part mixed once (`dropout_keep_from_parts` has their steps). In
 training the bf16 forward also writes the mask as bits (`dropout_keep_bits`,
 `keep_bits_words` words a row), which the bf16 backward reads instead of
 hashing.
+
+A call on the rows of one rank of a data-parallel batch passes `bh_offset`,
+its first global row × heads: the hash then takes each head's global index,
+so the rank drops what the one-device call drops on those rows (every mask
+function here and the kernels take it; the bf16 backward reads the
+forward's bits and hashes nothing).
 """
 
 from __future__ import annotations
@@ -71,14 +77,14 @@ def dropout_keep_from_parts(row_part: torch.Tensor, col_part: torch.Tensor,
 
 
 def dropout_row_part(seed: int, bh: int, n: int, block_q: int,
-                     device=None) -> torch.Tensor:
+                     device=None, bh_offset: int = 0) -> torch.Tensor:
     """[bh, n] int64: the part of the keep hash that depends on the query
-    row only, (seed + (bh·65536 + row // block_q)·2654435761) ^
-    (row % block_q)·0x9E3779B1 mod 2^32, which the kernels compute once per
-    row."""
+    row only, (seed + ((bh_offset + bh)·65536 + row // block_q)·2654435761)
+    ^ (row % block_q)·0x9E3779B1 mod 2^32, which the kernels compute once
+    per row."""
     kw = dict(dtype=torch.int64, device=device)
     rows = torch.arange(n, **kw)
-    heads = torch.arange(bh, **kw)
+    heads = torch.arange(bh_offset, bh_offset + bh, **kw)
     base = (int(seed) + _mul32(heads[:, None] * 65536 + (rows // block_q)[None, :],
                                2654435761)) & _M32
     return base ^ _mul32(rows % block_q, 0x9E3779B1)[None, :]
@@ -97,11 +103,11 @@ def keep_bits_words(n: int) -> int:
 
 
 def dropout_keep_bits(seed: int, rate: float, bh: int, n: int, block_q: int,
-                      device=None) -> torch.Tensor:
+                      device=None, bh_offset: int = 0) -> torch.Tensor:
     """The keep mask as the bf16 forward writes it: [bh, n,
     keep_bits_words(n)] int32 holding uint32 words, bit c % 32 of word c // 32
     set where key c of the row is kept, 0 for c >= n."""
-    keep = dropout_keep_mask(seed, rate, bh, n, block_q, device)
+    keep = dropout_keep_mask(seed, rate, bh, n, block_q, device, bh_offset)
     words = keep_bits_words(n)
     padded = torch.zeros(bh, n, words * 32, dtype=torch.int64, device=device)
     padded[:, :, :n] = keep.long()
@@ -120,14 +126,14 @@ def unpack_keep_bits(bits: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def dropout_keep_mask(seed: int, rate: float, bh: int, n: int, block_q: int,
-                      device=None) -> torch.Tensor:
-    """Keep mask [bh, n, n] (bool) of `_dropout_mask` in the JAX kernel,
-    computed in int64 arithmetic masked to 32 bits (torch.uint32 lacks most
-    ops on the CPU)."""
+                      device=None, bh_offset: int = 0) -> torch.Tensor:
+    """Keep mask [bh, n, n] (bool) of `_dropout_mask` in the JAX kernel for
+    heads bh_offset … bh_offset + bh − 1, computed in int64 arithmetic
+    masked to 32 bits (torch.uint32 lacks most ops on the CPU)."""
     kw = dict(dtype=torch.int64, device=device)
     rows = torch.arange(n, **kw)
     blk, r = rows // block_q, rows % block_q
-    heads = torch.arange(bh, **kw)
+    heads = torch.arange(bh_offset, bh_offset + bh, **kw)
     base = (int(seed) + _mul32(heads[:, None] * 65536 + blk[None, :],
                                2654435761)) & _M32                  # [bh, n]
     h = (base[:, :, None] ^ _mul32(r, 0x9E3779B1)[None, :, None]
@@ -143,7 +149,8 @@ def dropout_keep_mask(seed: int, rate: float, bh: int, n: int, block_q: int,
 def flash_self_attention_reference(q: torch.Tensor, k: torch.Tensor,
                                    v: torch.Tensor, dropout_rate: float = 0.0,
                                    dropout_seed: Optional[int] = None,
-                                   block_q: int = 256) -> torch.Tensor:
+                                   block_q: int = 256,
+                                   bh_offset: int = 0) -> torch.Tensor:
     """The plain version: the TPU kernel's arithmetic in PyTorch ops.
 
     q*scale in q's dtype (the scale rounded to that dtype first, as
@@ -162,7 +169,8 @@ def flash_self_attention_reference(q: torch.Tensor, k: torch.Tensor,
     p = p / p.sum(dim=-1, keepdim=True)
     if dropout_rate > 0.0:
         keep = dropout_keep_mask(dropout_seed, dropout_rate, b * h, n,
-                                 block_q, q.device).reshape(b, h, n, n)
+                                 block_q, q.device,
+                                 bh_offset).reshape(b, h, n, n)
         p = p * keep.float() * torch.tensor(
             1.0 / (1.0 - dropout_rate), dtype=torch.float32, device=q.device)
     out = torch.matmul(p.to(v.dtype).float(), v.float())
@@ -176,7 +184,7 @@ def _library() -> ctypes.CDLL:
         # Python int as a 32-bit int
         ptr, i32, u32, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32,
                               ctypes.c_float)
-        tail = [f32, f32, u32, u32, i32, ptr]
+        tail = [f32, f32, u32, u32, i32, i32, ptr]
         # bf16: + keep_bits (forward); + qs scratch and keep_bits (backward)
         lib.flash_fwd_bf16.argtypes = [ptr] * 6 + [i32] * 3 + tail
         lib.flash_fwd_f32.argtypes = [ptr] * 5 + [i32] * 3 + tail
@@ -218,7 +226,8 @@ def _dropout_args(rate: float, seed: Optional[int]):
 def flash_attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             dropout_rate: float = 0.0,
                             dropout_seed: Optional[int] = None,
-                            block_q: int = 256, with_lse: bool = False):
+                            block_q: int = 256, with_lse: bool = False,
+                            bh_offset: int = 0):
     """Launch the forward kernel on CUDA tensors [B, H, N, D]: (out, lse,
     bits). lse [B·H, N] fp32 (the softmax's log-sum-exp per row) only when
     asked, else None; bits, the keep mask in `dropout_keep_bits`' layout that
@@ -243,7 +252,7 @@ def flash_attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         else:
             fn = lib.flash_fwd_f32
         err = fn(*head, b * h, n, d, d ** -0.5, rate, seed, thresh, block_q,
-                 stream)
+                 bh_offset, stream)
     if err:
         raise RuntimeError(f"flash attention kernel launch failed: CUDA error {err}")
     flash_self_attention.launches += 1
@@ -254,7 +263,8 @@ def flash_self_attention_backward(q, k, v, out, dout, lse,
                                   dropout_rate: float = 0.0,
                                   dropout_seed: Optional[int] = None,
                                   block_q: int = 256,
-                                  keep_bits: Optional[torch.Tensor] = None):
+                                  keep_bits: Optional[torch.Tensor] = None,
+                                  bh_offset: int = 0):
     """Launch the backward kernels on CUDA tensors: (dq, dk, dv) in q's dtype
     from the forward's inputs, its output, the output's gradient and its LSE;
     in bf16 with dropout also the forward's keep bits, which the kernels read
@@ -288,7 +298,7 @@ def flash_self_attention_backward(q, k, v, out, dout, lse,
         else:
             fn = lib.flash_bwd_f32
         err = fn(*head, dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b * h, n,
-                 d, d ** -0.5, rate, seed, thresh, block_q, stream)
+                 d, d ** -0.5, rate, seed, thresh, block_q, bh_offset, stream)
     if err:
         raise RuntimeError(f"flash attention backward launch failed: CUDA error {err}")
     flash_self_attention_backward.launches += 1
@@ -301,33 +311,39 @@ class _FlashAttention(torch.autograd.Function):
     the backward reads them instead of hashing the mask again."""
 
     @staticmethod
-    def forward(ctx, q, k, v, rate, seed, block_q):
+    def forward(ctx, q, k, v, rate, seed, block_q, bh_offset):
         need_grad = any(ctx.needs_input_grad[:3])
         out, lse, bits = flash_attention_forward(q, k, v, rate, seed, block_q,
-                                                 with_lse=need_grad)
+                                                 with_lse=need_grad,
+                                                 bh_offset=bh_offset)
         if need_grad:
             ctx.save_for_backward(q, k, v, out, lse, bits)
         ctx.args = (rate, seed, block_q)
+        ctx.bh_offset = bh_offset
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse, bits = ctx.saved_tensors
         dq, dk, dv = flash_self_attention_backward(
-            q, k, v, out, dout.contiguous(), lse, *ctx.args, keep_bits=bits)
-        return dq, dk, dv, None, None, None
+            q, k, v, out, dout.contiguous(), lse, *ctx.args, keep_bits=bits,
+            bh_offset=ctx.bh_offset)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          dropout_rate: float = 0.0,
                          dropout_seed: Optional[torch.Tensor] = None,
-                         block_q: int = 256) -> torch.Tensor:
+                         block_q: int = 256,
+                         bh_offset: int = 0) -> torch.Tensor:
     """Multi-head self-attention, [B, H, N, D] → [B, H, N, D] in q's dtype.
 
     Same signature and contract as the JAX function (N must be a multiple of
     `block_q`; `dropout_seed`, an int32 [1] tensor on the CPU, is required
     when dropout_rate > 0); the CUDA kernels tile by 128 and 64 rows
-    whatever `block_q`, which only places the dropout mask.
+    whatever `block_q`, which only places the dropout mask. `bh_offset`: the
+    global batch·head index of q's first head (rank r of a data-parallel
+    batch passes its first global row × H).
     """
     n = q.shape[2]
     if n % block_q:
@@ -339,10 +355,11 @@ def flash_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         seed = int(torch.as_tensor(dropout_seed).reshape(-1)[0])
     if q.device.type == "cpu":
         return flash_self_attention_reference(q, k, v, dropout_rate, seed,
-                                              block_q)
+                                              block_q, bh_offset)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    return _FlashAttention.apply(q, k, v, float(dropout_rate), seed, block_q)
+    return _FlashAttention.apply(q, k, v, float(dropout_rate), seed, block_q,
+                                 int(bh_offset))
 
 
 # launches of the CUDA kernels (the plain versions are not counted)

@@ -25,7 +25,12 @@ def cosine_loss(pred: torch.Tensor, gt: torch.Tensor,
 def psnr(pred: torch.Tensor, gt: torch.Tensor,
          max_val: float = 1.0) -> torch.Tensor:
     """Scalar PSNR over the whole batch; 100 when the MSE is 0."""
-    mse = torch.mean(torch.square(pred - gt))
+    return psnr_of_mse(torch.mean(torch.square(pred - gt)), max_val)
+
+
+def psnr_of_mse(mse: torch.Tensor, max_val: float = 1.0) -> torch.Tensor:
+    """`psnr` from the batch's MSE (a data-parallel step passes the MSE
+    averaged over its ranks)."""
     mse_safe = torch.where(mse == 0, torch.ones_like(mse), mse)
     val = 20.0 * torch.log10(max_val / torch.sqrt(mse_safe))
     return torch.where(mse == 0, torch.full_like(mse, 100.0), val)

@@ -18,6 +18,12 @@ stable argsort of depth, as `jnp.argsort` (ties change the blend order).
 launches the CUDA kernels on CUDA tensors. `backend="xla"` is the plain
 route: the blend's plain PyTorch version on any device.
 
+A tile window `tile_range=(tile_lo, n_local)` (JAX `_build_keys`'
+`tile_range`) bins only the duplicates that land in global tiles tile_lo …
+tile_lo + n_local − 1 of each sample, under local ids, and packs and blends
+those tiles only (their global pixel origins go to the blend): one rank's
+share of the tile-sharded renderer (`parallel/rasterizer_sharded.py`).
+
 Static capacities as in JAX: splats past `tile_capacity` in a tile are
 dropped (`overflow_splats`), rect slots past `max_tiles_per_gaussian` too
 (`overflow_gaussians`); both are returned.
@@ -69,13 +75,21 @@ def _grid(cfg: RasterizeConfig):
     return tiles_x, tiles_y, tiles_x * tiles_y
 
 
-def _build_keys(pre: gm.ProjectedGaussians, cfg: RasterizeConfig):
+def _window(cfg: RasterizeConfig, tile_range=None):
+    """(first global tile, tiles) of a window; the whole grid without one."""
+    return (0, _grid(cfg)[2]) if tile_range is None else tuple(tile_range)
+
+
+def _build_keys(pre: gm.ProjectedGaussians, cfg: RasterizeConfig,
+                tile_range=None):
     """Duplicate each Gaussian into its tile-rect slots and sort by
     (sample, tile, depth). `pre` fields are [B, N, ·]. Returns (sorted keys,
     rank_bits, sorted global Gaussian ids b·N + g, overflow_gaussians);
-    invalid entries carry tile B·T (sorted to the end)."""
+    invalid entries, and with `tile_range` the duplicates outside the
+    window, carry tile B·T (sorted to the end), T the window's tiles."""
     b, n = pre.depths.shape
-    tiles_x, _, num_tiles = _grid(cfg)
+    tiles_x, _, _ = _grid(cfg)
+    tile_lo, num_tiles = _window(cfg, tile_range)
     r_cap = cfg.max_tiles_per_gaussian
     dev = pre.depths.device
 
@@ -92,8 +106,11 @@ def _build_keys(pre: gm.ProjectedGaussians, cfg: RasterizeConfig):
     tile_y = pre.rect_min[..., 1:2].long() + torch.div(slot, rect_w_safe,
                                                        rounding_mode="floor")
     dup_valid = (slot < pre.tiles_touched[..., None]) & pre.valid[..., None]
+    local = tile_y * tiles_x + tile_x - tile_lo
+    if tile_range is not None:
+        dup_valid = dup_valid & (local >= 0) & (local < num_tiles)
     sample = torch.arange(b, device=dev)[:, None, None]
-    tile_id = torch.where(dup_valid, sample * num_tiles + tile_y * tiles_x + tile_x,
+    tile_id = torch.where(dup_valid, sample * num_tiles + local,
                           torch.full_like(tile_x, b * num_tiles))
     rank_bits = max(1, (n - 1).bit_length())
     key = (tile_id << rank_bits) | ranks[..., None]
@@ -104,13 +121,15 @@ def _build_keys(pre: gm.ProjectedGaussians, cfg: RasterizeConfig):
     return sorted_key, rank_bits, sorted_gidx, overflow
 
 
-def tile_lists(pre: gm.ProjectedGaussians, cfg: RasterizeConfig):
+def tile_lists(pre: gm.ProjectedGaussians, cfg: RasterizeConfig,
+               tile_range=None):
     """Bin and sort: (gidx [B·T, K], in_list [B·T, K], counts [B·T],
-    overflow_splats, overflow_gaussians)."""
+    overflow_splats, overflow_gaussians), T the tiles of the window."""
     b = pre.depths.shape[0]
-    sorted_key, rank_bits, sorted_gidx, overflow_g = _build_keys(pre, cfg)
+    sorted_key, rank_bits, sorted_gidx, overflow_g = _build_keys(
+        pre, cfg, tile_range)
     gidx, in_list, counts, overflow_s = _tile_gather(
-        sorted_key, rank_bits, sorted_gidx, b * _grid(cfg)[2],
+        sorted_key, rank_bits, sorted_gidx, b * _window(cfg, tile_range)[1],
         cfg.tile_capacity)
     return gidx, in_list, counts, overflow_s, overflow_g
 
@@ -142,12 +161,15 @@ def _untile(img: torch.Tensor, cfg: RasterizeConfig, b: int) -> torch.Tensor:
 
 
 def pack_tiles(pre: gm.ProjectedGaussians, lang: torch.Tensor, gidx, in_list,
-               cfg: RasterizeConfig, b: int):
+               cfg: RasterizeConfig, b: int, tile_range=None):
     """The blend's inputs: every per-splat attribute packed channel-first
     [9+F, B·N] and gathered once into attrs [B·T, 9+F, K], with the tiles'
-    counts [B·T, 1], pixel origins [B·T, 2] and live slots [B·T, 1, K]."""
-    tiles_x, _, num_tiles = _grid(cfg)
-    t_ids = torch.arange(num_tiles, device=lang.device).repeat(b)
+    counts [B·T, 1], pixel origins [B·T, 2] (of the window's global tiles)
+    and live slots [B·T, 1, K]."""
+    tiles_x = _grid(cfg)[0]
+    tile_lo, num_tiles = _window(cfg, tile_range)
+    t_ids = torch.arange(tile_lo, tile_lo + num_tiles,
+                         device=lang.device).repeat(b)
     origins = torch.stack([(t_ids % tiles_x) * cfg.tile,
                            torch.div(t_ids, tiles_x, rounding_mode="floor")
                            * cfg.tile], dim=-1).float()
@@ -162,12 +184,12 @@ def pack_tiles(pre: gm.ProjectedGaussians, lang: torch.Tensor, gidx, in_list,
 
 
 def _blend(pre: gm.ProjectedGaussians, lang: torch.Tensor, gidx, in_list,
-           cfg: RasterizeConfig, bg: torch.Tensor, b: int):
-    """Blend the packed tiles. Returns patches (color [B·T, P, 3],
-    lang [B·T, P, F], final_t [B·T, P])."""
+           cfg: RasterizeConfig, bg: torch.Tensor, b: int, tile_range=None):
+    """Blend the packed tiles (of the window). Returns patches (color
+    [B·T, P, 3], lang [B·T, P, F], final_t [B·T, P])."""
     with record_function("rasterize/gather"):
         counts, origins, attrs, livet = pack_tiles(pre, lang, gidx, in_list,
-                                                   cfg, b)
+                                                   cfg, b, tile_range)
     blend = blend_tiles if cfg.backend == "pallas" else blend_tiles_reference
     with record_function("rasterize/blend"):
         color_t, lang_t, logtf = blend(counts, origins, attrs, livet,

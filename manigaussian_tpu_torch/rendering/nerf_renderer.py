@@ -32,6 +32,7 @@ from manigaussian_tpu_torch.models.gaussian_regressor import (
     ResnetFC, positional_encoding)
 from manigaussian_tpu_torch.ops.camera import world_to_canonical
 from manigaussian_tpu_torch.ops.voxelize import segment_sum
+from manigaussian_tpu_torch.parallel.distributed import Rows
 
 NUM_FREQS = 6
 FREQ_FACTOR = 1.5
@@ -289,18 +290,23 @@ class GNFactorNeRFRenderer(nn.Module):
         return coarse, fine
 
     def forward(self, voxel_feat, gt_rgb, gt_pose, gt_intrinsic, gt_embed,
-                generator: torch.Generator, training: bool = True
-                ) -> NerfLosses:
+                generator: torch.Generator, training: bool = True,
+                rows: Optional[Rows] = None, mesh=None) -> NerfLosses:
         """The training losses on a random chunk of `ray_chunk_size` rays a
         sample (compute_rendering_loss, :410-466): voxel_feat
         [B, V, V, V, C], gt_rgb [B, H, W, 3], gt_pose [B, 4, 4] c2w,
-        gt_intrinsic [B, 3, 3], gt_embed [B, H, W, d_embed]."""
+        gt_intrinsic [B, 3, 3], gt_embed [B, H, W, d_embed]. On one rank of
+        a data-parallel batch (`rows`, `mesh`) the draws are made for the
+        global batch and sliced to the rank's rows, and the PSNR is taken
+        from the MSE averaged over the data group."""
         b = voxel_feat.shape[0]
         hw = self.image_height * self.image_width
         dev = voxel_feat.device
-        draws = NerfDraws(*(None if x is None else x.to(dev) for x in
-                            self.sample_draws(generator, b,
-                                              self.ray_chunk_size, training)))
+        draws = self.sample_draws(generator, rows.total if rows else b,
+                                  self.ray_chunk_size, training)
+        draws = NerfDraws(*(None if x is None else
+                            (x.narrow(0, rows.lo, b) if rows else x).to(dev)
+                            for x in draws))
         rays = gen_rays(gt_pose, gt_intrinsic, self.image_width,
                         self.image_height, self.z_near, self.z_far)
         pick = lambda x: torch.gather(
@@ -313,7 +319,10 @@ class GNFactorNeRFRenderer(nn.Module):
         l_rgb_f = self.lambda_rgb * mse(fine.rgb, gt_c)
         l_emb_c = self.lambda_embed * mse(coarse.embed, gt_e)
         l_emb_f = self.lambda_embed * mse(fine.embed, gt_e)
-        psnr = -10.0 * torch.log10(torch.clamp(mse(fine.rgb, gt_c), min=1e-10))
+        mse_f = mse(fine.rgb, gt_c).detach()
+        if mesh is not None:
+            mse_f = mesh.all_reduce(mse_f, "data", "mean")
+        psnr = -10.0 * torch.log10(torch.clamp(mse_f, min=1e-10))
         return NerfLosses(l_rgb_c + l_rgb_f + l_emb_c + l_emb_f, l_rgb_c,
                           l_rgb_f, l_emb_c, l_emb_f, psnr)
 

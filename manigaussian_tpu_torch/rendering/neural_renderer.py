@@ -11,6 +11,13 @@ With a ground-truth embedding (`gt_embed`, the semantic tiers) the rendered
 embedding image enters the loss through `loss_embed_fn` (cosine by default)
 × `lambda_embed`; with `use_semantic_feature` (`foundation_model_name=
 "diffusion"`) the deformation field also reads the detached embedding.
+
+Multi-device (JAX `_render_batch`'s `tile_mesh`): with `tile_mesh` every
+render, this frame's and the next frame's, goes through
+`parallel/rasterizer_sharded.py`, each rank blending its window of the
+tiles. With `mesh` (a data-parallel step on this rank's rows) the batch-wide
+statistics are taken over the data group: the `l2_norm` embed loss's min and
+max of `gt_embed`, and the PSNR from the MSE averaged over the ranks.
 """
 
 from __future__ import annotations
@@ -26,6 +33,8 @@ from manigaussian_tpu_torch.ops import losses as L
 from manigaussian_tpu_torch.ops.camera import novel_camera_calib
 from manigaussian_tpu_torch.ops.rasterizer import (RasterizeConfig,
                                                    rasterize_batch)
+from manigaussian_tpu_torch.parallel.rasterizer_sharded import \
+    rasterize_sharded
 
 
 class RenderLosses(NamedTuple):
@@ -77,22 +86,30 @@ class NeuralRenderer(nn.Module):
         return novel_camera_calib(intrinsic, pose, self.znear, self.zfar,
                                   self.cfg.height, self.cfg.width)
 
-    def _render(self, params, cameras):
-        """Returns (color [B,H,W,3], lang [B,H,W,3], overflow_s, overflow_g)."""
+    def _render(self, params, cameras, tile_mesh=None):
+        """Returns (color [B,H,W,3], lang [B,H,W,3], overflow_s, overflow_g);
+        with `tile_mesh`, the tiles sharded over its "tile" axis."""
         feat = params["feature"]
         eps = self.feature_norm_eps
         feat = feat / torch.sqrt(torch.clamp((feat * feat).sum(-1, keepdim=True),
                                              min=eps * eps))
-        out, extras = rasterize_batch(
-            params["xyz"], params["opacity"][..., 0], cameras, self.cfg,
-            self.bg_color, scales=params["scale"], rotations=params["rot"],
-            shs=params["sh"], language_features=feat)
+        args = (params["xyz"], params["opacity"][..., 0], cameras, self.cfg,
+                self.bg_color)
+        kw = dict(scales=params["scale"], rotations=params["rot"],
+                  shs=params["sh"], language_features=feat)
+        if tile_mesh is not None:
+            out, extras = rasterize_sharded(tile_mesh, *args, **kw)
+        else:
+            out, extras = rasterize_batch(*args, **kw)
         return (out.color, out.language_feature, extras.overflow_splats,
                 extras.overflow_gaussians)
 
-    def _embed_loss(self, render_embed, gt_embed):
+    def _embed_loss(self, render_embed, gt_embed, mesh=None):
         if self.loss_embed_fn == "l2_norm":
             lo, hi = gt_embed.min(), gt_embed.max()
+            if mesh is not None:   # of the global batch
+                lo = mesh.all_reduce(lo, "data", "min")
+                hi = mesh.all_reduce(hi, "data", "max")
             return L.l2_loss(render_embed, (gt_embed - lo) / (hi - lo + 1e-12))
         if self.loss_embed_fn == "l2":
             return L.l2_loss(render_embed, gt_embed)
@@ -103,18 +120,20 @@ class NeuralRenderer(nn.Module):
     def forward(self, pcd, dec_fts, gt_rgb=None, gt_pose=None,
                 gt_intrinsic=None, next_gt_rgb=None, next_gt_pose=None,
                 next_gt_intrinsic=None, gt_embed=None, action=None,
-                step: int = 0, training: bool = True):
+                step: int = 0, training: bool = True, mesh=None,
+                tile_mesh=None):
         """pcd [B, N, 3] world points, dec_fts [B, V, V, V, d_latent].
         Returns (RenderLosses, RenderResult)."""
         params = self.gs_model(pcd, dec_fts, action=action)
         render_novel, render_embed, ov_s, ov_g = self._render(
-            params, self._cameras(gt_intrinsic, gt_pose))
+            params, self._cameras(gt_intrinsic, gt_pose), tile_mesh)
 
         next_render = None
         if self.use_dynamic_field and next_gt_pose is not None:
             if step >= self.warm_up:
                 next_render, _, _, _ = self._render(
-                    params["next"], self._cameras(next_gt_intrinsic, next_gt_pose))
+                    params["next"], self._cameras(next_gt_intrinsic,
+                                                  next_gt_pose), tile_mesh)
             else:
                 next_render = render_novel.new_zeros(render_novel.shape)
 
@@ -124,11 +143,13 @@ class NeuralRenderer(nn.Module):
             return losses, RenderResult(render_novel, next_render, render_embed)
 
         loss_rgb = L.l2_loss(render_novel, gt_rgb)
-        psnr_v = L.psnr(render_novel, gt_rgb)
+        mse = loss_rgb.detach()
+        psnr_v = L.psnr_of_mse(mse if mesh is None else
+                               mesh.all_reduce(mse, "data", "mean"))
         loss = loss_rgb  # enters unweighted, like the reference forward
         loss_embed = zero
         if gt_embed is not None:
-            loss_embed = self._embed_loss(render_embed, gt_embed)
+            loss_embed = self._embed_loss(render_embed, gt_embed, mesh)
             loss = loss + self.lambda_embed * loss_embed
         loss_dyna = zero
         if next_render is not None and next_gt_rgb is not None:

@@ -9,6 +9,13 @@ every `save_freq` with a rolling window, a last checkpoint at the end, and
 every `render_freq` steps (step 0 too) the recon panel of the batch's
 first target view (`agent.render_for_vis`, `utils/visualization`); a
 failure of the panel is printed and never stops training.
+
+Multi-process (JAX runner, `is_main`): every rank runs the loop and restores
+the same checkpoint on resume; rank 0 alone logs, writes the CSV, the recon
+panels and the checkpoints, and every save ends in a barrier. With a
+`mesh` (data and/or tile axes) the step is
+`parallel/train_sharded.make_sharded_update`'s; the weights and LAMB state
+start from rank 0's (`replicate_state`).
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ import torch
 
 from manigaussian_tpu_torch.agents.bc_agent import ManiGaussianBCAgent
 from manigaussian_tpu_torch.config import ManiGaussianConfig
+from manigaussian_tpu_torch.parallel import distributed
 from manigaussian_tpu_torch.utils.checkpoint import (restore_checkpoint,
                                                      save_checkpoint)
 from manigaussian_tpu_torch.utils.logger import MetricLogger
@@ -28,18 +36,24 @@ from manigaussian_tpu_torch.utils.logger import MetricLogger
 
 class OfflineTrainRunner:
     def __init__(self, agent: ManiGaussianBCAgent, batch_iterator: Iterator,
-                 logdir: str, cfg: ManiGaussianConfig, seed: int = 0):
+                 logdir: str, cfg: ManiGaussianConfig, seed: int = 0,
+                 mesh=None):
         self.agent = agent
         self.batches = batch_iterator
         self.logdir = logdir
         self.cfg = cfg
         self.seed = seed
-        self.logger = MetricLogger(logdir)
+        self.mesh = mesh
+        self.is_main = distributed.is_main()
+        self.logger = MetricLogger(logdir) if self.is_main else None
 
     def _save(self, step: int) -> None:
-        save_checkpoint(self.logdir, step, self.agent.qfn, cfg=self.cfg,
-                        optimizer=self.agent.optimizer(),
-                        num_weights_to_keep=self.cfg.framework.num_weights_to_keep)
+        if self.is_main:
+            save_checkpoint(
+                self.logdir, step, self.agent.qfn, cfg=self.cfg,
+                optimizer=self.agent.optimizer(),
+                num_weights_to_keep=self.cfg.framework.num_weights_to_keep)
+        distributed.barrier()
 
     def _recon_panel(self, step: int, batch) -> None:
         """The recon panel (qattention:921-1010); visualization must never
@@ -73,6 +87,14 @@ class OfflineTrainRunner:
                 start_iter = step
                 self.agent.step = self.agent.optimizer().count
                 print(f"[train] resumed from iteration {step}", flush=True)
+        update = self.agent.update
+        if distributed.is_initialized():
+            from manigaussian_tpu_torch.parallel.mesh import replicate_state
+            replicate_state(self.agent.qfn, self.agent.optimizer())
+            if self.mesh is not None:
+                from manigaussian_tpu_torch.parallel.train_sharded import \
+                    make_sharded_update
+                update = make_sharded_update(self.agent, self.mesh)
 
         gen = torch.Generator().manual_seed(self.seed + 1)
         host: Dict[str, float] = {}
@@ -82,8 +104,8 @@ class OfflineTrainRunner:
                 batch = next(self.batches)
             except StopIteration:
                 break
-            metrics = self.agent.update(batch, gen)
-            if i % fw.log_freq == 0:
+            metrics = update(batch, gen)
+            if i % fw.log_freq == 0 and self.is_main:
                 host = {k: float(v) for k, v in metrics.items()}
                 dt = time.perf_counter() - t_last
                 host["steps_per_s"] = (fw.log_freq if i else 1) / max(dt, 1e-9)
@@ -94,9 +116,11 @@ class OfflineTrainRunner:
             if i and i % fw.save_freq == 0:
                 self._save(i)
             render_freq = self.cfg.method.neural_renderer.render_freq
-            if (self.cfg.method.use_neural_rendering and render_freq
-                    and i % render_freq == 0 and "nerf_target_rgb" in batch):
+            if (self.is_main and self.cfg.method.use_neural_rendering
+                    and render_freq and i % render_freq == 0
+                    and "nerf_target_rgb" in batch):
                 self._recon_panel(i, batch)
         self._save(total_iters - 1)
-        self.logger.flush()
+        if self.is_main:
+            self.logger.flush()
         return host

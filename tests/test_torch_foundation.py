@@ -138,8 +138,9 @@ def test_create_feature_extractor_routes(tmp_path, monkeypatch):
         ex = TF.create_feature_extractor("diffusion", str(tmp_path / "no.ckpt"),
                                          device="cpu")
     assert isinstance(ex, TF.StubFeatureExtractor)
-    # a DINOv2 directory is the transformers route (ROADMAP A.3)
-    with pytest.raises(NotImplementedError, match="A.3"):
+    # a directory is the DINOv2 directory route: one without config.json
+    # raises (tests/test_torch_parallel_dinov2_dir.py loads real ones)
+    with pytest.raises(FileNotFoundError):
         TF.create_feature_extractor("dinov2", str(tmp_path), device="cpu")
     # a converted .msgpack needs flax (ROADMAP A.6)
     msgpack = tmp_path / "sd_vae.msgpack"
