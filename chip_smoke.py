@@ -134,6 +134,36 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                    step's losses against the one-process run, step times
                    and peak memory (two ranks share one card: no scaling
                    figure).
+ 16. eval_slice  — the eval CLI at `w_geo` width over two checkpoints of
+                   different weights: serially (the flash forward
+                   `transformer_depth` times an act), with `--workers 2`
+                   (two spawned processes on the card, each counting its
+                   acts and launches; rows equal to the serial ones) and
+                   with `--record-every-n 1` (a GIF an episode of its
+                   steps + 1 frames); each run's wall time.
+ 17. eval_rpc    — `python -m manigaussian_tpu_torch.sim_host_server
+                   --backend mock --port 0 --record <path>` in a
+                   subprocess, the eval CLI against it (`--env rpc://`),
+                   then the recorded session replayed (`--env
+                   transcript://`, exhausted): the mock rows both times;
+                   the time a step spends in the bridge.
+ 18. adam_slice  — `method.optimizer=adam` through the train entry point
+                   (3 steps and a resume, as train_slice); the restored
+                   optimizer state equal to the saved one bit for bit; one
+                   more AdamW step on the card against the plain formula
+                   in fp64 (`ADAM_TOL`); the step beside LAMB's.
+ 19. disk_slice  — the default `replay.use_disk=true` (the native record
+                   store) through the train entry point, 3 steps and a
+                   resume that reopens the log; the store must not have
+                   fallen back to pickles; a pickle-layout run from the
+                   same demos and seed gives the same first batches bit
+                   for bit; both layouts' waits in `next(batches)`.
+ 20. two_level   — the rasterizer's `small_rect_cap` on the training frame
+                   (16,384 Gaussians, 128², the blend kernels): bit for
+                   bit the single-level render (image, features, T,
+                   gradients) with a table of every big Gaussian; with a
+                   quarter of them the CPU plain route's overflow count and
+                   image; sort lengths and bin/sort times.
 Every training slice also holds the recon render at step 0
 (`render_for_vis`: the policy's forward, and one blend forward with the
 splat renderer) to its launches.
@@ -1380,9 +1410,14 @@ def phase_small() -> None:
             raise AssertionError(f"card and CPU disagree on the small input: {errs}")
 
 
-def drive_eval(counters: dict, logdir: str, demos: str):
-    """The port's eval entry point on the mock env from the newest checkpoint
-    under `logdir`, with the counts set to 0 just before and read just after.
+ACT_ARGS = ("--env", "mock", "--eval-type", "last", "--episodes", "2",
+            "--episode-length", "5")
+
+
+def drive_eval(counters: dict, logdir: str, demos: str, args=ACT_ARGS):
+    """The port's eval entry point (by default on the mock env from the
+    newest checkpoint under `logdir`; `args` its flags after --logdir and
+    --demo-root), with the counts set to 0 just before and read just after.
     Returns (act calls, launches, the result rows, seconds, each act's wall
     ms to a finished result); raises unless every act returned a finite
     [1, 9] action."""
@@ -1409,8 +1444,7 @@ def drive_eval(counters: dict, logdir: str, demos: str):
             fn.launches = 0
         t0 = time.time()
         rows = eval_cli.main(["--logdir", logdir, "--demo-root", demos,
-                              "--env", "mock", "--eval-type", "last",
-                              "--episodes", "2", "--episode-length", "5"])
+                              *args])
         torch.cuda.synchronize()
         eval_s = time.time() - t0
         launches = {name: fn.launches for name, fn in counters.items()}
@@ -2004,7 +2038,7 @@ def phase_train_slice(counters: dict, variant: str = "w_geo", overrides=(),
 
     cfg = train_config(variant, overrides)
     m = cfg.method
-    logdir = os.path.join(WORK, f"train_logs_{variant}_{m.name}")
+    logdir = os.path.join(WORK, f"train_logs_{label}_{variant}_{m.name}")
     t0 = time.time()
     if demos is None:
         demos = os.path.join(WORK, "train_demos")
@@ -2865,6 +2899,633 @@ def embed_ab(rounds: int = 3, steps: int = 5) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- slice 11
+# The eval CLI's checkpoint workers, GIFs and RPC / transcript envs; Adam;
+# the native replay store; the rasterizer's two-level duplication.
+EVAL_ARGS = ("--eval-type", "missing", "--episodes", "2",
+             "--episode-length", "5")
+
+
+class timed_methods:
+    """Within the block, each (class, name) method appends its calls' wall
+    ms to `self.ms[name]`."""
+
+    def __init__(self, *methods):
+        self.methods, self.ms, self._orig = methods, {}, []
+
+    def __enter__(self):
+        for cls, name in self.methods:
+            orig = getattr(cls, name)
+            times = self.ms.setdefault(f"{cls.__name__}.{name}", [])
+
+            def timed(*args, _orig=orig, _times=times, **kwargs):
+                t0 = time.perf_counter()
+                out = _orig(*args, **kwargs)
+                _times.append((time.perf_counter() - t0) * 1e3)
+                return out
+
+            self._orig.append((cls, name, orig))
+            setattr(cls, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for cls, name, orig in self._orig:
+            setattr(cls, name, orig)
+
+
+def counted_eval_worker(job):
+    """One checkpoint's eval in a spawned worker of `eval --workers`: the
+    runner's worker function and its payload (`job`), with the worker's act
+    calls, kernel launches and card written to <WORK>/eval_workers/<step>.json
+    for the parent to check."""
+    import torch
+    from manigaussian_tpu_torch.agents.bc_agent import ManiGaussianBCAgent
+    from manigaussian_tpu_torch.train import kernel_launches
+    fn, payload = job
+    calls, orig = [0], ManiGaussianBCAgent.act
+
+    def counted(self, observation):
+        calls[0] += 1
+        return orig(self, observation)
+
+    ManiGaussianBCAgent.act = counted
+    t0 = time.time()
+    row = fn(payload)
+    on_card = torch.cuda.is_initialized()
+    if on_card:
+        torch.cuda.synchronize()
+    out = os.path.join(WORK, "eval_workers")
+    os.makedirs(out, exist_ok=True)
+    with open(os.path.join(out, f"{payload[2]}.json"), "w") as f:
+        json.dump({"pid": os.getpid(), "device": payload[6],
+                   "card": torch.cuda.get_device_name(0) if on_card else None,
+                   "act_calls": calls[0], "launches": kernel_launches(),
+                   "seconds": time.time() - t0}, f)
+    return row
+
+
+class _CountedPool:
+    """The spawn pool of `run_eval_parallel`, each task run through
+    `counted_eval_worker`."""
+
+    def __init__(self, pool):
+        self.pool = pool
+
+    def __enter__(self):
+        self.pool.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self.pool.__exit__(*exc)
+
+    def map(self, fn, payloads):
+        return self.pool.map(counted_eval_worker, [(fn, p) for p in payloads])
+
+
+def eval_copy(src: str, name: str) -> str:
+    """A log dir's checkpoints and config without its CSV, videos and
+    language cache, under WORK/<name>."""
+    dst = os.path.join(WORK, name)
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(src, dst, ignore=shutil.ignore_patterns(
+        "eval_data.csv", "videos", "lang_cache"))
+    return dst
+
+
+def phase_eval_slice(counters: dict, sl: dict) -> dict:
+    """The eval CLI at full `w_geo` width over two checkpoints of different
+    weights (the slice's, seed 0, and one from seed 1): serially in this
+    process with the launch counts (the flash forward `transformer_depth`
+    times an act); with `--workers 2` (two spawned processes on the card,
+    each counting its own acts and launches), whose rows must equal the
+    serial ones; with `--record-every-n 1`, one GIF an episode holding the
+    episode's steps + 1 frames. Each run's wall time."""
+    import multiprocessing
+    import torch
+    from PIL import Image
+    from manigaussian_tpu_torch import eval as eval_cli
+    from manigaussian_tpu_torch.agents.registry import create_agent
+    from manigaussian_tpu_torch.envs.mock_env import MockEnvClient
+    from manigaussian_tpu_torch.runners import eval_runner
+    from manigaussian_tpu_torch.utils.checkpoint import save_checkpoint
+    from manigaussian_tpu_torch.utils.video import EpisodeRecorder
+
+    cfg, demos, m = sl["cfg"], sl["demos"], sl["cfg"].method
+    base = eval_copy(sl["logdir"], "eval_ckpts")
+    save_checkpoint(base, 1, create_agent(cfg, device="cuda", seed=1).qfn)
+    t_phase = time.time()
+    with timed_methods((MockEnvClient, "step")) as mock:
+        calls, launches, rows, serial_s, act_ms = drive_eval(
+            counters, eval_copy(base, "eval_serial"), demos,
+            ("--env", "mock", *EVAL_ARGS))
+    expect = {k: 0 for k in counters} | {
+        "flash_self_attention_fwd": m.transformer_depth * calls}
+
+    shutil.rmtree(os.path.join(WORK, "eval_workers"), ignore_errors=True)
+    ctx = multiprocessing.get_context("spawn")
+    pool = ctx.Pool
+    ctx.Pool = lambda n: _CountedPool(pool(n))
+    try:
+        t0 = time.time()
+        w_rows = eval_cli.main(["--logdir", eval_copy(base, "eval_workers_log"),
+                                "--demo-root", demos, "--env", "mock",
+                                *EVAL_ARGS, "--workers", "2"])
+        workers_s = time.time() - t0
+    finally:
+        del ctx.Pool
+    workers = {}
+    for step in (0, 1):
+        with open(os.path.join(WORK, "eval_workers", f"{step}.json")) as f:
+            workers[step] = json.load(f)
+    card = torch.cuda.get_device_name(0)
+    workers_ok = all(
+        w["device"] == "cuda" and w["card"] == card and w["act_calls"] > 0
+        and w["launches"] == {k: 0 for k in counters} | {
+            "flash_self_attention_fwd": m.transformer_depth * w["act_calls"]}
+        for w in workers.values())
+    worker_launches = {k: sum(w["launches"][k] for w in workers.values())
+                       for k in counters}
+
+    frames, lengths = [], []
+    orig_save, orig_rollout = EpisodeRecorder.save, eval_runner.rollout_episode
+
+    def counted_save(self, path_base, *args, **kwargs):
+        frames.append((os.path.basename(path_base), len(self._frames)))
+        return orig_save(self, path_base, *args, **kwargs)
+
+    def counted_rollout(*args, **kwargs):
+        out = orig_rollout(*args, **kwargs)
+        lengths.append(out[1])
+        return out
+
+    EpisodeRecorder.save = counted_save
+    eval_runner.rollout_episode = counted_rollout
+    try:
+        rec_log = eval_copy(base, "eval_record")
+        t0 = time.time()
+        r_rows = eval_cli.main(["--logdir", rec_log, "--demo-root", demos,
+                                "--env", "mock", *EVAL_ARGS,
+                                "--record-every-n", "1"])
+        record_s = time.time() - t0
+    finally:
+        EpisodeRecorder.save = orig_save
+        eval_runner.rollout_episode = orig_rollout
+    task = cfg.rlbench.tasks[0]
+    want = sorted(f"{task}_step{s}_ep{e}.gif" for s in (0, 1) for e in (0, 1))
+    gifs = sorted(os.listdir(os.path.join(rec_log, "videos")))
+    gif_frames = [Image.open(os.path.join(rec_log, "videos", g)).n_frames
+                  for g in gifs]
+    ok = (calls >= 4 and launches == expect and len(rows) == 2
+          and [int(r["step"]) for r in rows] == [0, 1]
+          and w_rows == rows and workers_ok and r_rows == rows
+          and gifs == want and [n for _, n in frames] == [s + 1 for s in lengths]
+          and all(0 < g <= s + 1 for g, s in zip(gif_frames, lengths)))
+    log("eval_slice", config="w_geo", checkpoints=[0, 1], rows=rows,
+        act_calls=calls, launches=launches, expected=expect,
+        act_ms_median=statistics.median(act_ms),
+        mock_step_ms_median=statistics.median(mock.ms["MockEnvClient.step"]),
+        serial_s=serial_s, workers_s=workers_s, workers=workers,
+        worker_rows_equal=w_rows == rows, record_s=record_s, gifs=gifs,
+        recorder_frames=frames, episode_steps=lengths,
+        gif_frames_after_pillow=gif_frames,
+        seconds=time.time() - t_phase, ok=ok)
+    if not ok:
+        raise AssertionError("the eval slice (workers, GIFs) failed its checks")
+    return {"base": base, "rows": rows, "launches": launches,
+            "worker_launches": worker_launches,
+            "mock_step_ms": mock.ms["MockEnvClient.step"]}
+
+
+def read_line(proc, timeout: float) -> str:
+    """The next line of a subprocess's stdout, or an error after
+    `timeout` seconds."""
+    import select
+    ready, _, _ = select.select([proc.stdout], [], [], timeout)
+    if not ready:
+        raise AssertionError(f"no output from {proc.args} in {timeout} s")
+    return proc.stdout.readline().strip()
+
+
+def phase_eval_rpc(counters: dict, sl: dict, ev: dict) -> dict:
+    """The eval CLI against a simulator on another process: `python -m
+    manigaussian_tpu_torch.sim_host_server --backend mock --port 0` (its
+    address read from its first line) recording the session, the CLI with
+    `--env rpc://127.0.0.1:<port>`; then the recorded session replayed with
+    `--env transcript://<path>`, which must end exhausted. Both give the
+    serial mock run's rows, with the same launch counts; the time an env
+    step takes through the bridge beside the in-process mock's."""
+    from manigaussian_tpu_torch.envs.rpc import RPCEnvClient
+    from manigaussian_tpu_torch.envs.transcript import TranscriptReplayEnv
+    from manigaussian_tpu_torch.runners import eval_runner
+
+    m = sl["cfg"].method
+    session = os.path.join(WORK, "eval_rpc_session.jsonl")
+    t_phase = time.time()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "manigaussian_tpu_torch.sim_host_server",
+         "--host", "127.0.0.1", "--port", "0", "--backend", "mock",
+         "--dataset-root", sl["demos"], "--episode-length", "5",
+         "--record", session], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, start_new_session=True)
+    try:
+        line = read_line(proc, 120)
+        address = line.rsplit(" ", 1)[-1]
+        with timed_methods((RPCEnvClient, "step"),
+                           (RPCEnvClient, "reset_to_demo")) as rpc:
+            calls, launches, rows, rpc_s, _ = drive_eval(
+                counters, eval_copy(ev["base"], "eval_rpc"), sl["demos"],
+                ("--env", f"rpc://{address}", *EVAL_ARGS))
+    finally:
+        proc.terminate()
+        proc.wait(timeout=30)
+    envs, orig_make = [], eval_runner.make_env
+
+    def kept_env(*args):
+        envs.append(orig_make(*args))
+        return envs[-1]
+
+    eval_runner.make_env = kept_env
+    try:
+        with timed_methods((TranscriptReplayEnv, "step")) as rep:
+            t_calls, t_launches, t_rows, transcript_s, _ = drive_eval(
+                counters, eval_copy(ev["base"], "eval_transcript"),
+                sl["demos"], ("--env", f"transcript://{session}", *EVAL_ARGS))
+    finally:
+        eval_runner.make_env = orig_make
+    replay = envs[0]
+    exhausted = (isinstance(replay, TranscriptReplayEnv)
+                 and replay._i == len(replay.records))
+    expect = lambda n: {k: 0 for k in counters} | {
+        "flash_self_attention_fwd": m.transformer_depth * n}
+    rpc_step = statistics.median(rpc.ms["RPCEnvClient.step"])
+    mock_step = statistics.median(ev["mock_step_ms"])
+    ok = (line.startswith("[sim-host] serving mock env on 127.0.0.1:")
+          and rows == ev["rows"] and t_rows == ev["rows"] and exhausted
+          and launches == expect(calls) and t_launches == expect(t_calls)
+          and calls == t_calls)
+    log("eval_rpc", server_line=line, rows_equal_mock=rows == ev["rows"],
+        transcript_rows_equal_mock=t_rows == ev["rows"],
+        transcript_exhausted=exhausted,
+        transcript_records=len(replay.records), act_calls=calls,
+        launches=launches, transcript_launches=t_launches,
+        rpc_step_ms=rpc.ms["RPCEnvClient.step"],
+        rpc_reset_ms=rpc.ms["RPCEnvClient.reset_to_demo"],
+        rpc_step_ms_median=rpc_step, mock_step_ms_median=mock_step,
+        rpc_added_ms_a_step=rpc_step - mock_step,
+        transcript_step_ms_median=statistics.median(
+            rep.ms["TranscriptReplayEnv.step"]),
+        rpc_s=rpc_s, transcript_s=transcript_s,
+        seconds=time.time() - t_phase, ok=ok)
+    if not ok:
+        raise AssertionError("the RPC / transcript eval failed its checks")
+    return {"launches": launches, "transcript_launches": t_launches}
+
+
+# one AdamW step on the card against the plain formula on CPU fp64 copies,
+# with optax's constants (the moments' decays as Python floats, the bias
+# corrections 1 - b^t in float32): each value within 2^-20 of the sum of
+# its terms' magnitudes, carried through the formula (|b·m| + |(1 - b)·g|
+# for m, the same for v; |p| + lr·(that of m / c1 / (√v̂ + eps) + wd·|p|)
+# for the parameters): the float32 step rounds a few times, and m is often
+# a difference of two close terms, whose rounding the update inherits (my
+# chip run 2, PR 11: 4.9 × a bound that used |update| alone, on the CPU's
+# float32 step as on the card's)
+ADAM_TOL = 2.0 ** -20
+
+
+def adam_plain_check(opt) -> dict:
+    """`opt.step()` on the card from its present state and gradients (w_geo
+    clips none), held to the plain AdamW formula in fp64 on CPU copies."""
+    import numpy as np
+    import torch
+    assert opt.grad_clip_norm == 0
+    g = [(p.grad if p.grad is not None else torch.zeros_like(p))
+         .double().cpu() for p in opt.params]
+    p0 = [p.detach().double().cpu() for p in opt.params]
+    m0 = [m.double().cpu() for m in opt.mu]
+    v0 = [v.double().cpu() for v in opt.nu]
+    lr, t, b1, b2 = opt.current_lr(), opt.count + 1, opt.b1, opt.b2
+    c1, c2 = (float(1 - np.float32(b) ** np.float32(t)) for b in (b1, b2))
+    m1 = [b1 * m + (1 - b1) * x for m, x in zip(m0, g)]
+    v1 = [b2 * v + (1 - b2) * x * x for v, x in zip(v0, g)]
+    upd = [(m / c1) / (torch.sqrt(v / c2) + opt.eps) + opt.weight_decay * p
+           for p, m, v in zip(p0, m1, v1)]
+    p1 = [p - lr * u for p, u in zip(p0, upd)]
+    m_mag = [(b1 * m).abs() + ((1 - b1) * x).abs() for m, x in zip(m0, g)]
+    scales = {"params": [p.abs() + lr * ((mm / c1) / (torch.sqrt(v / c2)
+                                                       + opt.eps)
+                                         + opt.weight_decay * p.abs())
+                         for p, mm, v in zip(p0, m_mag, v1)],
+              "mu": m_mag,
+              "nu": [(b2 * v).abs() + (1 - b2) * x * x
+                     for v, x in zip(v0, g)]}
+    # the same step in float32 on the CPU, beside the card's
+    host = type(opt)([x.float().clone() for x in p0], opt.lr, b1=b1, b2=b2,
+                     eps=opt.eps, weight_decay=opt.weight_decay)
+    host.load_state_dict(opt.state_dict())
+    for q, x in zip(host.params, g):
+        q.grad = x.float()
+    host.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    opt.step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    errs, worst = {}, {}
+    for name, card, cpu, plain in (
+            ("params", opt.params, host.params, p1),
+            ("mu", opt.mu, host.mu, m1), ("nu", opt.nu, host.nu, v1)):
+        ratios = [((a.detach().double().cpu() - b).abs()
+                   / (ADAM_TOL * sc + 1e-38)) for a, b, sc in
+                  zip(card, plain, scales[name])]
+        leaf = max(range(len(ratios)), key=lambda i: float(ratios[i].max()))
+        at = int(ratios[leaf].argmax())
+        errs[name] = float(ratios[leaf].reshape(-1)[at])
+        errs[name + "_cpu_fp32"] = max(
+            float(((a.double() - b).abs() / (ADAM_TOL * sc + 1e-38)).max())
+            for a, b, sc in zip(cpu, plain, scales[name]))
+        flat = lambda x: float(x.detach().double().cpu().reshape(-1)[at])
+        worst[name] = {"leaf": leaf, "shape": list(p0[leaf].shape),
+                       "p0": flat(p0[leaf]), "g": flat(g[leaf]),
+                       "m0": flat(m0[leaf]), "v0": flat(v0[leaf]),
+                       "update": flat(upd[leaf]), "card": flat(card[leaf]),
+                       "cpu_fp32": flat(cpu[leaf]), "plain": flat(
+                           (p1 if name == "params" else m1 if name == "mu"
+                            else v1)[leaf])}
+    card_equals_cpu = all(torch.equal(a.detach().cpu(), b) for a, b in
+                          zip(opt.params + opt.mu + opt.nu,
+                              host.params + host.mu + host.nu))
+    return {"leaves": len(p0), "values": sum(p.numel() for p in p0),
+            "lr": lr, "count": t, "step_ms": step_ms,
+            "error_over_tol": errs, "worst": worst,
+            "card_equals_cpu_fp32_bitwise": card_equals_cpu,
+            "ok": max(errs[k] for k in ("params", "mu", "nu")) <= 1.0}
+
+
+def phase_adam_slice(counters: dict, demos: str, lamb_step_ms: float) -> dict:
+    """`method.optimizer=adam` through the train entry point at full `w_geo`
+    width: 3 steps and a resume (`phase_train_slice`: finite losses, the
+    launches of every step); the optimizer state the resume restored equal
+    to the saved one bit for bit; then one more AdamW step on the card from
+    the last step's gradients against the plain formula in fp64."""
+    import torch
+    from manigaussian_tpu_torch.agents.bc_agent import ManiGaussianBCAgent
+    from manigaussian_tpu_torch.runners import offline_train_runner as runner
+    from manigaussian_tpu_torch.utils.optimizers import AdamW
+
+    agents, restored = [], []
+    orig_update, orig_restore = ManiGaussianBCAgent.update, runner.restore_checkpoint
+
+    def kept_update(self, *args, **kwargs):
+        agents[:] = [self]
+        return orig_update(self, *args, **kwargs)
+
+    def kept_restore(logdir, module, step=None, optimizer=None):
+        out = orig_restore(logdir, module, step=step, optimizer=optimizer)
+        state = optimizer.state_dict()
+        restored.append((out[1], {**state, **{k: [t.clone() for t in state[k]]
+                                              for k in ("mu", "nu")}}))
+        return out
+
+    ManiGaussianBCAgent.update = kept_update
+    runner.restore_checkpoint = kept_restore
+    t0 = time.time()
+    try:
+        tr = phase_train_slice(counters, "w_geo", ("method.optimizer=adam",),
+                               steps=3, demos=demos, label="adam_slice")
+    finally:
+        ManiGaussianBCAgent.update = orig_update
+        runner.restore_checkpoint = orig_restore
+    step, state = restored[-1]
+    saved = torch.load(os.path.join(tr["logdir"], "seed0", "weights",
+                                    str(step), "optimizer.pt"),
+                       weights_only=True)
+    same = (state["kind"] == saved["kind"] == "adam"
+            and state["count"] == saved["count"] == step + 1
+            and all(torch.equal(a, b) for a, b in
+                    zip(state["mu"] + state["nu"], saved["mu"] + saved["nu"])))
+    opt = agents[0].optimizer()
+    check = adam_plain_check(opt)
+    ok = same and type(opt) is AdamW and check["ok"]
+    log("adam_slice_check", restored_step=step,
+        restored_equals_saved=same, plain_check=check,
+        tol=f"{ADAM_TOL} of the sum of the terms' magnitudes",
+        adam_step_ms_median=tr["step_ms"], lamb_step_ms_median=lamb_step_ms,
+        seconds=time.time() - t0, ok=ok)
+    if not ok:
+        raise AssertionError("the Adam slice failed its checks")
+    return tr
+
+
+def phase_disk_slice(counters: dict, demos: str) -> dict:
+    """The train entry point with the default `replay.use_disk=true` at full
+    `w_geo` width: 3 steps and a resume (`phase_train_slice`, the resume
+    reopening the record log); the replay must use the native store (no
+    fallback to pickles). Then a run with the pickle layout (the store's
+    default storage switched for it) from the same demos and seed: its
+    first 3 batches equal the native run's bit for bit. The wait in
+    `next(batches)` and the replay's sampling time of both layouts."""
+    import numpy as np
+    from manigaussian_tpu_torch import train as train_cli
+    from manigaussian_tpu_torch.data.pipeline import BatchIterator
+    from manigaussian_tpu_torch.data import replay as replay_module
+    from manigaussian_tpu_torch.data.replay import TaskUniformReplay
+
+    class PickleReplay(TaskUniformReplay):
+        """The replay the train entry point builds, in the pickle layout."""
+
+        def __init__(self, save_dir=None, shard=(0, 1)):
+            super().__init__(save_dir, shard, storage="pickle")
+
+    seen = {}                 # layout → each run's storage, batches, waits
+    runs, orig_init, orig_next = [], BatchIterator.__init__, BatchIterator.__next__
+
+    def kept_init(self, replay, *args, **kwargs):
+        orig_init(self, replay, *args, **kwargs)
+        runs.append({"storage": replay.storage, "batches": [], "wait_ms": []})
+        self._smoke_run = runs[-1]
+
+    def kept_next(self):
+        t0 = time.perf_counter()
+        batch = orig_next(self)
+        self._smoke_run["wait_ms"].append((time.perf_counter() - t0) * 1e3)
+        if len(self._smoke_run["batches"]) < 3:
+            self._smoke_run["batches"].append(
+                {k: np.array(v) for k, v in batch.items()})
+        return batch
+
+    native_dir = os.path.join(WORK, "replay_native")
+    pickle_dir = os.path.join(WORK, "replay_pickle")
+    for d in (native_dir, pickle_dir):
+        shutil.rmtree(d, ignore_errors=True)
+    BatchIterator.__init__, BatchIterator.__next__ = kept_init, kept_next
+    t0 = time.time()
+    try:
+        tr = phase_train_slice(
+            counters, "w_geo", ("replay.use_disk=true",
+                                f"replay.path={native_dir}"),
+            steps=3, demos=demos, label="disk_slice")
+        seen["native"] = runs[:]
+        runs.clear()
+        replay_module.TaskUniformReplay = PickleReplay
+        try:
+            train_cli.main(["--demo-root", demos, "--logdir",
+                            os.path.join(WORK, "train_logs_disk_pickle"),
+                            *TRAIN_OVERRIDES, "replay.use_disk=true",
+                            f"replay.path={pickle_dir}",
+                            "framework.training_iterations=3"])
+        finally:
+            replay_module.TaskUniformReplay = TaskUniformReplay
+        seen["pickle"] = runs[:]
+    finally:
+        BatchIterator.__init__, BatchIterator.__next__ = orig_init, orig_next
+    task_dir = os.path.join(native_dir, TASK)
+    native_files = sorted(os.listdir(task_dir))
+    pickles = [f for f in os.listdir(os.path.join(pickle_dir, TASK))
+               if f.endswith(".replay")]
+    first, other = seen["native"][0], seen["pickle"][0]
+    equal = (len(first["batches"]) == len(other["batches"]) == 3
+             and all(a.keys() == b.keys()
+                     and all(a[k].dtype == b[k].dtype
+                             and np.array_equal(a[k], b[k]) for k in a)
+                     for a, b in zip(first["batches"], other["batches"])))
+    sample_ms = {}
+    for layout, path in (("native", native_dir), ("pickle", pickle_dir)):
+        replay = TaskUniformReplay(save_dir=path, storage=layout)
+        replay.reload_from_disk()
+        rng = np.random.default_rng(0)
+        wall = []
+        for _ in range(20):
+            t1 = time.perf_counter()
+            replay.sample(1, rng)
+            wall.append((time.perf_counter() - t1) * 1e3)
+        sample_ms[layout] = statistics.median(wall)
+    ok = (all(r["storage"] == "native" for r in seen["native"])
+          and len(seen["native"]) == 2
+          and native_files == ["records.bin", "records.idx"]
+          and [r["storage"] for r in seen["pickle"]] == ["pickle"]
+          and len(pickles) > 0 and equal)
+    log("disk_slice_check", storage=[r["storage"] for r in seen["native"]],
+        record_files=native_files,
+        record_bytes=os.path.getsize(os.path.join(task_dir, "records.bin")),
+        pickle_files=len(pickles), first_batches_equal_pickle_layout=equal,
+        next_batch_wait_ms={"native": first["wait_ms"],
+                            "native_resume": seen["native"][1]["wait_ms"],
+                            "pickle": other["wait_ms"]},
+        next_batch_wait_ms_median_after_1={
+            k: statistics.median(r["wait_ms"][1:]) for k, r in
+            (("native", first), ("pickle", other))},
+        sample_one_ms_median=sample_ms, seconds=time.time() - t0, ok=ok)
+    if not ok:
+        raise AssertionError("the native replay store slice failed its checks")
+    return tr
+
+
+def random_scene(n: int = 16384, seed: int = 0) -> dict:
+    """`random_frame`'s Gaussians (numpy draws), as float32 arrays."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    means = np.array([0.0, 0.0, 2.0]) + 0.5 * rng.standard_normal((n, 3))
+    scales = np.exp(rng.uniform(np.log(0.01), np.log(0.08), (n, 3)))
+    q = rng.standard_normal((n, 4))
+    return {"means3d": means.astype(f), "scales": scales.astype(f),
+            "rotations": (q / np.linalg.norm(q, axis=-1,
+                                             keepdims=True)).astype(f),
+            "opacities": rng.uniform(0.05, 0.95, n).astype(f),
+            "shs": (0.3 * rng.standard_normal((n, 4, 3))).astype(f),
+            "language_features": rng.standard_normal((n, 3)).astype(f)}
+
+
+def phase_two_level(counters: dict) -> dict:
+    """The rasterizer's two-level duplication on the training frame (16,384
+    Gaussians, 128², the blend kernels): with `small_rect_cap` 4 and a table
+    of every big Gaussian, the image, features, transmittance and the
+    Gaussians' gradients equal the single-level render's bit for bit (the
+    same splats in the same key order; the Gaussians past r_cap tiles are
+    cut alike); with a table of a quarter of them, `overflow_gaussians`
+    (more than the single level's) and the image equal the plain route's
+    on the CPU (the image under the golden rule). The sort lengths and the
+    bin/sort time of both."""
+    import torch
+    from manigaussian_tpu_torch.ops import gaussian_math as gm
+    from manigaussian_tpu_torch.ops.camera import novel_camera_calib
+    from manigaussian_tpu_torch.ops.rasterizer import (RasterizeConfig,
+                                                       rasterize, tile_lists)
+
+    scene, hw = random_scene(), 128
+    keys = ("means3d", "opacities", "scales", "rotations", "shs",
+            "language_features")
+
+    def camera(dev):
+        intr = torch.tensor([[hw * 0.95, 0, hw / 2], [0, hw * 0.95, hw / 2],
+                             [0, 0, 1]], device=dev)
+        cam = novel_camera_calib(intr[None], torch.eye(4, device=dev)[None],
+                                 0.1, 4.0, hw, hw)
+        return type(cam)(*(f[0] for f in cam))
+
+    def render(cfg, dev="cuda", grads=True):
+        p = {k: torch.tensor(scene[k], device=dev).requires_grad_(grads)
+             for k in keys}
+        out, ex = rasterize(p["means3d"], p["opacities"], camera(dev), cfg,
+                            (0.0, 0.0, 0.0), p["scales"], p["rotations"],
+                            p["shs"], p["language_features"])
+        if grads:
+            ((out.color ** 2).sum() + out.language_feature.sum()
+             + out.final_t.sum()).backward()
+        return out, ex, [p[k].grad for k in keys] if grads else []
+
+    t_phase = time.time()
+    single = RasterizeConfig(width=hw, height=hw)
+    cam = camera("cuda")
+    t = lambda k: torch.tensor(scene[k], device="cuda")[None]
+    pre = gm.preprocess(t("means3d"), t("opacities"),
+                        type(cam)(*(f[None] for f in cam)), hw, hw, 16,
+                        scales=t("scales"), rotations=t("rotations"),
+                        shs=t("shs"))
+    s_cap, r_cap, n = 4, single.max_tiles_per_gaussian, len(scene["means3d"])
+    n_big = int((pre.tiles_touched > s_cap).sum())
+    full = single._replace(small_rect_cap=s_cap, big_table_cap=n_big)
+    small = single._replace(small_rect_cap=s_cap, big_table_cap=n_big // 4)
+    s_out, s_ex, s_grads = render(single)
+    for fn in counters.values():
+        fn.launches = 0
+    t_out, t_ex, t_grads = render(full)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    bitwise = (all(torch.equal(a, b) for a, b in zip(s_out, t_out))
+               and all(torch.equal(a, b) for a, b in zip(s_grads, t_grads)))
+    k_out, k_ex, _ = render(small, grads=False)
+    c_out, c_ex, _ = render(small, dev="cpu", grads=False)
+    img = mostly_close(k_out.color.detach().cpu(), c_out.color.detach(),
+                       1e-4, 1e-3)
+    overflow = (int(k_ex.overflow_gaussians), int(c_ex.overflow_gaussians))
+    times = {name: cuda_ms(lambda c=c: tile_lists(pre, c), iters=20)
+             for name, c in (("single", single), ("two_level", full))}
+    lengths = {"single": n * r_cap, "two_level": n * s_cap + n_big * r_cap,
+               "two_level_quarter_table": n * s_cap + (n_big // 4) * r_cap}
+    ok = (bitwise and int(t_ex.overflow_gaussians)
+          == int(s_ex.overflow_gaussians)
+          and overflow[0] == overflow[1] > int(s_ex.overflow_gaussians)
+          and img[0]
+          and launches == {k: 0 for k in counters} | {"blend_fwd": 1,
+                                                       "blend_bwd": 1})
+    log("two_level", gaussians=n, big_gaussians=n_big, small_rect_cap=s_cap,
+        r_cap=r_cap, tables=[n_big, n_big // 4],
+        equal_single_level_bitwise=bitwise, launches=launches,
+        overflow_gaussians_single_level=int(s_ex.overflow_gaussians),
+        overflow_gaussians_small_table_card_cpu=overflow,
+        overflow_splats=[int(s_ex.overflow_splats),
+                         int(t_ex.overflow_splats)],
+        small_table_image_frac_outside_max_diff=img[1:],
+        sort_lengths=lengths, bin_sort_ms=times,
+        rule="image atol 1e-4 rtol 1e-3, ≤0.5 % outside",
+        seconds=time.time() - t_phase, ok=ok)
+    if not ok:
+        raise AssertionError("the two-level duplication failed its checks")
+    return {"launches": launches}
+
+
 def main(argv) -> int:
     if argv not in ([], ["--flash-times"], ["--blend-times"], ["--embed-ab"],
                     ["--conv-times"], ["--gnf-steps"], ["--step-times"]):
@@ -2978,6 +3639,11 @@ def main(argv) -> int:
     phase_nerf_parts(gr["batch"], gr["cfg"])
     phase_dino_dir()
     dp = phase_dp_slice(tr["demos"])
+    ev = phase_eval_slice(counters, sl)
+    rp = phase_eval_rpc(counters, sl, ev)
+    ad = phase_adam_slice(counters, tr["demos"], tr["step_ms"])
+    dk = phase_disk_slice(counters, tr["demos"])
+    tl = phase_two_level(counters)
     # launches on the main paths, each read just after its run: the full
     # model's training run (`launches`: w_geo_sem_dyna, the one path that
     # launches every kernel of the paths), and every path by name, the bench
@@ -2994,7 +3660,14 @@ def main(argv) -> int:
              "bench": bn["launches"], "train_gnfactor_bc": gn["launches"],
              "act_gnfactor_bc": gn["act_launches"],
              **{f"train_w_geo_{run}_rank0": c
-                for run, c in dp["launches"].items()}}
+                for run, c in dp["launches"].items()},
+             "eval_w_geo_serial": ev["launches"],
+             "eval_w_geo_workers2": ev["worker_launches"],
+             "eval_w_geo_rpc": rp["launches"],
+             "eval_w_geo_transcript": rp["transcript_launches"],
+             "train_w_geo_adam": ad["launches"],
+             "train_w_geo_native_replay": dk["launches"],
+             "render_two_level": tl["launches"]}
     # every kernel of a dp_slice run's path (the flash and blend pairs) was
     # launched there (phase_dp_slice also holds each rank to its count)
     for run, c in dp["launches"].items():

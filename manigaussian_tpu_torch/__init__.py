@@ -12,10 +12,16 @@ paths mirror the JAX package's so each counterpart is easy to find:
              and their ground-truth embedding (foundation.py)
   agents/  — QFunction (policy part), BC agent `act`, method registry
   data/    — stored-demo episodes, keypoints, synthetic demos, language stub
-  envs/    — env-client protocol, mock replay env
-  runners/ — eval runner (checkpoint selection, rollouts, eval CSV)
-  utils/   — device selection, config IO, torch checkpoints
+             and towers, the replay (in memory, native record store —
+             native/replay_store.cpp — or pickles) and batch pipeline
+  envs/    — env-client protocol, mock replay env, RPC bridge, recorded
+             transcripts, RLBench client
+  runners/ — eval runner (checkpoint selection, rollouts and GIFs, eval CSV,
+             checkpoint workers), training runner
+  utils/   — device selection, config IO, torch checkpoints, optimizers,
+             episode recorder
   convert  — JAX parameter tree → this package's state_dict
+  train, eval, bench, sim_host_server — the entry points (`python -m`)
 
 Entry points run on `cuda`; they run on the CPU only when the caller asks
 (`device="cpu"`, `--cpu`).

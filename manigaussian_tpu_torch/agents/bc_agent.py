@@ -6,22 +6,22 @@ Port of `manigaussian_tpu/agents/bc_agent.py`: the optimizer construction
 and `render_for_vis` (:236-254), i.e. reference qattention:654-1010 and
 1063-1158 plus the stack agent's continuous-action assembly. The JAX agent
 is functional (params and optimizer state are passed in and returned);
-here the agent owns its QFunction module, its LAMB state and its step
+here the agent owns its QFunction module, its optimizer state and its step
 count. Weights come from a seed (`torch.Generator`), a checkpoint, or
 `convert.py`.
 
 Multi-device: `update(..., mesh=)` runs one rank's share of a sharded step
 (with a "data" axis, its rows of the global batch;
 `parallel/train_sharded.py`): every draw is made for the global batch, the
-gradients are averaged over the mesh's ranks before LAMB and the metrics
-reduced over the data group. `tile_mesh` (JAX
+gradients are averaged over the mesh's ranks before the optimizer and the
+metrics reduced over the data group. `tile_mesh` (JAX
 `ManiGaussianBCAgent(tile_mesh=)`) shards the splat renderer's tiles in
 `update`; `act` and `render_for_vis` render without it.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -40,7 +40,8 @@ from manigaussian_tpu_torch.parallel.train_sharded import (average_gradients,
                                                            reduce_metrics)
 from manigaussian_tpu_torch.rendering.neural_renderer import RenderResult
 from manigaussian_tpu_torch.utils.device import DeviceLike, resolve_device
-from manigaussian_tpu_torch.utils.optimizers import Lamb, warmup_cosine_schedule
+from manigaussian_tpu_torch.utils.optimizers import (AdamW, Lamb,
+                                                     warmup_cosine_schedule)
 
 
 class ActResult(NamedTuple):
@@ -61,19 +62,24 @@ NERF_KEYS = ("nerf_target_rgb", "nerf_target_pose", "nerf_target_intrinsic",
              "nerf_next_target_intrinsic", "gt_embed", "action")
 
 
-def make_optimizer(cfg: ManiGaussianConfig, params) -> Lamb:
-    """Reference LAMB (weight decay `lambda_weight_l2`), with the
-    warmup-cosine schedule when `lr_scheduler` is set and the global-norm
-    clip when `grad_clip_norm` > 0 (JAX bc_agent.py:52-72)."""
+def make_optimizer(cfg: ManiGaussianConfig, params):
+    """`method.optimizer`: "lamb" the reference LAMB, "adam" optax's AdamW,
+    each with weight decay `lambda_weight_l2`, the warmup-cosine schedule
+    when `lr_scheduler` is set and the global-norm clip when
+    `grad_clip_norm` > 0 (JAX bc_agent.py:52-72)."""
     m = cfg.method
-    if m.optimizer != "lamb":
-        raise NotImplementedError(f"optimizer {m.optimizer!r} is not ported")
     lr = m.lr
     if m.lr_scheduler:
         lr = warmup_cosine_schedule(m.lr, m.num_warmup_steps,
                                     cfg.framework.training_iterations)
-    return Lamb(params, lr, weight_decay=m.lambda_weight_l2,
-                grad_clip_norm=m.grad_clip_norm)
+    if m.optimizer == "lamb":
+        opt = Lamb
+    elif m.optimizer == "adam":
+        opt = AdamW
+    else:
+        raise ValueError(f"unknown optimizer {m.optimizer}")
+    return opt(params, lr, weight_decay=m.lambda_weight_l2,
+               grad_clip_norm=m.grad_clip_norm)
 
 
 class ManiGaussianBCAgent:
@@ -91,11 +97,11 @@ class ManiGaussianBCAgent:
         self.qfn.to(self.device).eval()
         self.bounds = torch.tensor(cfg.rlbench.scene_bounds,
                                    dtype=torch.float32, device=self.device)
-        self.opt: Optional[Lamb] = None
+        self.opt: Optional[Union[Lamb, AdamW]] = None
         self.step = 0
 
-    def optimizer(self) -> Lamb:
-        """The LAMB state, made at the first use (act needs none)."""
+    def optimizer(self) -> Union[Lamb, AdamW]:
+        """The optimizer state, made at the first use (act needs none)."""
         if self.opt is None:
             self.opt = make_optimizer(self.cfg, self.qfn.parameters())
         return self.opt
@@ -106,7 +112,7 @@ class ManiGaussianBCAgent:
         """One BC step (JAX `update`): normalize; the augmentation draws
         (from `generator`, or `draws` as given) and their application; the
         forward in train mode (dropout from `generator`); the loss dict with
-        the JAX metric names; backward; the clip and LAMB step. `batch` holds
+        the JAX metric names; backward; the clip and the optimizer step. `batch` holds
         numpy arrays or tensors (the schema of data/pipeline.assemble_batch).
         With `mesh`, `batch` is this rank's rows of the global batch and
         `draws` (when given) the global batch's; the gradients are averaged

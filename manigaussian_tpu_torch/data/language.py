@@ -183,7 +183,12 @@ class CachedLanguageModel:
             out = (z["sent"], z["toks"])
         else:
             out = self.base.encode(text)
-            np.savez(path, sent=out[0], toks=out[1])
+            # written whole or not at all: the eval workers of one log dir
+            # share this cache, and one may read while another writes
+            tmp = f"{path}.{os.getpid()}.tmp"
+            with open(tmp, "wb") as f:
+                np.savez(f, sent=out[0], toks=out[1])
+            os.replace(tmp, path)
         self._mem[text] = out
         return out
 

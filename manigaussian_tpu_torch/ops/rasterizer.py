@@ -1,5 +1,5 @@
 """Gaussian-splat rasterizer: project → bin → sort → tile blend (port of
-`manigaussian_tpu/ops/rasterizer.py`, single-level duplication).
+`manigaussian_tpu/ops/rasterizer.py`).
 
   preprocess      ops/gaussian_math.preprocess, vectorized over the batch
   duplicate+sort  each Gaussian emits up to `max_tiles_per_gaussian` tile
@@ -17,6 +17,16 @@ stable argsort of depth, as `jnp.argsort` (ties change the blend order).
 `backend="pallas"` (the default) is the kernel route: `blend_tiles`, which
 launches the CUDA kernels on CUDA tensors. `backend="xla"` is the plain
 route: the blend's plain PyTorch version on any device.
+
+Two-level duplication (`small_rect_cap` s > 0, off by default as in JAX):
+every Gaussian gets s slots, and only the first `big_table_cap` Gaussians
+whose rects touch more than s tiles get their full `max_tiles_per_gaussian`
+rows, in a compacted side table; the sort shrinks from N·r_cap to
+N·s + big_table_cap·r_cap entries. The valid keys are those of the
+single-level list when the table holds every big Gaussian (the same render,
+bit for bit); the big Gaussians past the table keep s slots, counted in
+`overflow_gaussians`. Each key stays unique per (tile, Gaussian), so the
+sorted lists equal JAX's.
 
 A tile window `tile_range=(tile_lo, n_local)` (JAX `_build_keys`'
 `tile_range`) bins only the duplicates that land in global tiles tile_lo …
@@ -55,6 +65,8 @@ class RasterizeConfig(NamedTuple):
     chunk: int = 256
     sh_degree: int = 1
     backend: str = "pallas"
+    small_rect_cap: int = 0        # two-level duplication's s (0 = off)
+    big_table_cap: int = 8192      # its table's rows of big Gaussians
 
 
 class RenderOutput(NamedTuple):
@@ -113,12 +125,54 @@ def _build_keys(pre: gm.ProjectedGaussians, cfg: RasterizeConfig,
     tile_id = torch.where(dup_valid, sample * num_tiles + local,
                           torch.full_like(tile_x, b * num_tiles))
     rank_bits = max(1, (n - 1).bit_length())
-    key = (tile_id << rank_bits) | ranks[..., None]
-    gidx = (sample * n + torch.arange(n, device=dev)[None, :, None]).expand_as(key)
+    gidx = sample * n + torch.arange(n, device=dev)[None, :, None]
+    cap = r_cap
+    if cfg.small_rect_cap and cfg.small_rect_cap < r_cap:
+        tile_id, gidx, rank, cap = _two_level_dup(
+            pre, cfg, tile_id, ranks, gidx[..., 0], b * num_tiles)
+    else:
+        rank = ranks[..., None]
+    key = (tile_id << rank_bits) | rank
     sorted_key, perm = torch.sort(key.reshape(-1))
-    sorted_gidx = gidx.reshape(-1)[perm]
-    overflow = torch.clamp(pre.tiles_touched.long() - r_cap, min=0).sum()
+    sorted_gidx = gidx.expand_as(key).reshape(-1)[perm]
+    overflow = torch.clamp(pre.tiles_touched.long() - cap, min=0).sum()
     return sorted_key, rank_bits, sorted_gidx, overflow
+
+
+def _two_level_dup(pre: gm.ProjectedGaussians, cfg: RasterizeConfig,
+                   tile_id, ranks, gidx, invalid: int):
+    """The two-level duplicate list (JAX `_two_level_dup`), per sample:
+    every Gaussian's first s slots, but for the tabled ones (the first
+    `big_table_cap` by index with more than s tiles), whose full r_cap
+    slots fill the compacted table's rows. `tile_id` [B, N, r_cap] is the
+    single-level list (invalid entries `invalid`), `ranks` and `gidx`
+    [B, N]. Returns (tile ids, global ids, depth ranks), each [B, N·s +
+    M·r_cap], and each Gaussian's slot cap [B, N] (r_cap where tabled or
+    small, s for a big one past the table) for `overflow_gaussians`."""
+    b, n = ranks.shape
+    s_cap, r_cap = cfg.small_rect_cap, cfg.max_tiles_per_gaussian
+    m_cap = min(cfg.big_table_cap, n)
+    is_big = pre.tiles_touched > s_cap
+    # the big Gaussians first, each group in index order
+    big_order = torch.sort((~is_big).to(torch.uint8), dim=1,
+                           stable=True).indices
+    big_rank = torch.empty_like(big_order)
+    big_rank.scatter_(1, big_order,
+                      torch.arange(n, device=ranks.device).expand(b, n))
+    tabled = is_big & (big_rank < cfg.big_table_cap)
+    small_tile = torch.where(tabled[..., None], invalid, tile_id[..., :s_cap])
+    big_ids = big_order[:, :m_cap]                                # [B, M]
+    rows = tile_id.gather(1, big_ids[..., None].expand(b, m_cap, r_cap))
+    big_tile = torch.where(tabled.gather(1, big_ids)[..., None], rows,
+                           invalid)
+    flat = lambda small, big: torch.cat(
+        [small.expand(b, n, s_cap).reshape(b, -1),
+         big.expand(b, m_cap, r_cap).reshape(b, -1)], dim=1)
+    out = (flat(small_tile, big_tile),
+           flat(gidx[..., None], gidx.gather(1, big_ids)[..., None]),
+           flat(ranks[..., None], ranks.gather(1, big_ids)[..., None]))
+    cap = torch.where(is_big & ~tabled, s_cap, r_cap)
+    return (*out, cap)
 
 
 def tile_lists(pre: gm.ProjectedGaussians, cfg: RasterizeConfig,

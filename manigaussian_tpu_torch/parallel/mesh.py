@@ -104,8 +104,8 @@ def shard_batch(batch: Dict, mesh: Optional[Mesh], axis: str = "data"
 @torch.no_grad()
 def replicate_state(module: torch.nn.Module, optimizer=None) -> None:
     """Broadcast the parameters and buffers of `module`, and the moments and
-    update count of `optimizer` (a `Lamb`) when given, from rank 0 to every
-    rank, in place."""
+    update count of `optimizer` (`Lamb` or `AdamW`) when given, from rank 0
+    to every rank, in place."""
     tensors = list(itertools.chain(module.parameters(), module.buffers()))
     if optimizer is not None:
         tensors += optimizer.mu + optimizer.nu

@@ -2,7 +2,7 @@
 `manigaussian_tpu/runners/offline_train_runner.py:67-162`; YARR
 `offline_train_runner.py:157-234`).
 
-Resume from the newest checkpoint (params, LAMB state, step) when
+Resume from the newest checkpoint (params, optimizer state, step) when
 `load_existing_weights` is set, one `agent.update` per iteration, metrics to
 the host only at `log_freq` (the one sync point of the loop), checkpoints
 every `save_freq` with a rolling window, a last checkpoint at the end, and
@@ -14,7 +14,7 @@ Multi-process (JAX runner, `is_main`): every rank runs the loop and restores
 the same checkpoint on resume; rank 0 alone logs, writes the CSV, the recon
 panels and the checkpoints, and every save ends in a barrier. With a
 `mesh` (data and/or tile axes) the step is
-`parallel/train_sharded.make_sharded_update`'s; the weights and LAMB state
+`parallel/train_sharded.make_sharded_update`'s; the weights and optimizer state
 start from rank 0's (`replicate_state`).
 """
 

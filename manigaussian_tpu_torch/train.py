@@ -4,7 +4,9 @@ Same flags and flow as the root `train.py` for one device: resolve the
 config (variant, optional YAML, dotted overrides), optionally generate
 synthetic demos, fill the replay from the stored demos, build the agent and
 run the offline runner (auto-resume under
-`framework.load_existing_weights`), one log dir per seed. The semantic tiers
+`framework.load_existing_weights`), one log dir per seed. With
+`replay.use_disk` (the default) the replay lives under `replay.path` in the
+native record store and a later run reuses it. The semantic tiers
 (`foundation_model_name` set) build the frozen feature tower on the agent's
 device and hand its GT-embed function to the batch iterator, whose prefetch
 thread computes `gt_embed` for every batch; a resume rebuilds the tower
@@ -191,6 +193,7 @@ def _run_seed(args, cfg, seed, device=None, mesh=None, tile_mesh=None):
                 demo_augmentation_every_n=cfg.method.demo_augmentation_every_n,
                 keypoint_method=cfg.method.keypoint_method)
             print(f"[replay] {task}: {n} transitions", flush=True)
+        replay.flush()
     embed_fn = None
     nr = cfg.method.neural_renderer
     if nr.foundation_model_name and cfg.method.use_neural_rendering:

@@ -3,7 +3,8 @@
 Same directory convention as `manigaussian_tpu/utils/checkpoint.py`
 (`<logdir>/weights/<step>/`), so eval's missing/best/last selection reads
 both alike. A checkpoint holds the module's `state_dict` (`state_dict.pt`)
-and, from training, the LAMB state with its update count (`optimizer.pt`),
+and, from training, the optimizer's state with its update count
+(`optimizer.pt`; restoring it into the other optimizer raises),
 so a resume is exact; the resolved config sits beside the weights as
 `<logdir>/config.json`. The rolling window keeps the newest
 `num_weights_to_keep` (0 keeps all).

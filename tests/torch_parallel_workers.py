@@ -206,3 +206,43 @@ def act_worker(rank, port, world, cfg_dict, observation, out):
     res = make_sharded_act(agent, mesh)(observation)
     _save(out, rank, [x.clone() for x in res])
     dist.destroy_process_group()
+
+
+def adam_replicate_worker(rank, port, world, out):
+    """`replicate_state` with an AdamW: each rank steps its own module and
+    optimizer differently (rank 0 three times), then takes rank 0's."""
+    import torch.distributed as dist
+
+    from manigaussian_tpu_torch.parallel.mesh import replicate_state
+    from manigaussian_tpu_torch.utils.optimizers import AdamW
+    _init(rank, port, world)
+    torch.manual_seed(rank)
+    module = torch.nn.Sequential(torch.nn.Linear(4, 3), torch.nn.Linear(3, 2))
+    opt = AdamW(module.parameters(), 1e-2, weight_decay=1e-4)
+    for _ in range(3 if rank == 0 else 1):
+        for p in opt.params:
+            p.grad = torch.randn_like(p)
+        opt.step()
+    ref = [p.detach().clone() for p in opt.params]
+    replicate_state(module, opt)
+    _save(out, rank, {
+        "count": opt.count, "mu": [m.clone() for m in opt.mu],
+        "nu": [v.clone() for v in opt.nu], "params": _params_of(module),
+        "was_different": any(not torch.equal(a, b)
+                             for a, b in zip(ref, opt.params))})
+    dist.destroy_process_group()
+
+
+def _params_of(module):
+    return [p.detach().clone() for p in module.parameters()]
+
+
+def eval_worker_probe(payload):
+    """The eval runner's spawn worker on `payload`, then the modules of JAX
+    and of the JAX package that its process has imported."""
+    import sys
+
+    from manigaussian_tpu_torch.runners.eval_runner import _eval_worker
+    row = _eval_worker(payload)
+    banned = ("jax", "jaxlib", "flax", "optax", "manigaussian_tpu")
+    return row, sorted(m for m in sys.modules if m.split(".")[0] in banned)
