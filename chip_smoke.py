@@ -164,6 +164,30 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                    gradients) with a table of every big Gaussian; with a
                    quarter of them the CPU plain route's overflow count and
                    image; sort lengths and bin/sort times.
+ 21. dino_swiglu — the DINOv2 directory route with the SwiGLU MLP: a tiny
+                   seeded SwiGLU DINOv2 written by `save_hf_dir`, loaded
+                   through `create_feature_extractor`, card against CPU.
+ 22. towers_msgpack — CLIP text, DINOv2 and the SD VAE at tiny seeded
+                   widths: the port's `tools/convert_weights` writes each
+                   torch checkpoint as flax's `.msgpack`; each tower from
+                   the `.msgpack` on the card equals the one from the
+                   checkpoint bit for bit.
+ 23. imported_train — train_slice's demos exported in the reference's
+                   on-disk layout (pickled Demo / Observation through module
+                   shims, 24-bit depth PNGs, nerf_data), imported by `python
+                   -m manigaussian_tpu_torch.tools.import_rlbench`, then
+                   `w_geo` at full width for 3 steps and a resume through
+                   the train entry point; the first step's losses beside
+                   train_slice's.
+ 24. scaling     — `python -m manigaussian_tpu_torch.bench_scaling` as two
+                   `--dist` ranks sharing the card over gloo (rank 0 in this
+                   process): strong / weak render rows (65,536 Gaussians,
+                   128²) and the tiny config's DP rows at D = 1 and D = 2
+                   (`platform_limited`), the comm-model rows of the render
+                   and of the `w_geo` DP step, each held to its reckoning.
+ 25. extras      — `knn_mean_sq_dist` at 16,384 points, `attention3d` and
+                   `ssim`, card against CPU; `capture_trace` around one card
+                   training step.
 Every training slice also holds the recon render at step 0
 (`render_for_vis`: the policy's forward, and one blend forward with the
 splat renderer) to its launches.
@@ -2188,7 +2212,8 @@ def phase_train_slice(counters: dict, variant: str = "w_geo", overrides=(),
         raise AssertionError(f"the {variant} training slice failed its checks")
     return {"launches": launches, "step_ms": statistics.median(warm),
             "demos": demos, "logdir": logdir, "cfg": cfg,
-            "extractors": extractors, "peak": peak}
+            "extractors": extractors, "peak": peak,
+            "losses_first": metrics_seen[0]}
 
 
 def phase_tier_slice(counters: dict, demos: str, variant: str, overrides,
@@ -3526,6 +3551,491 @@ def phase_two_level(counters: dict) -> dict:
     return {"launches": launches}
 
 
+def phase_dino_swiglu() -> dict:
+    """The DINOv2 directory route with the SwiGLU MLP of the giant model: a
+    tiny SwiGLU DINOv2 (patch 14, width 64, 2 layers, a 5² position grid)
+    with seeded random weights, written by the port's `save_hf_dir`
+    (`use_swiglu_ffn` true), loaded through `create_feature_extractor(
+    "dinov2", <dir>)` on the card and on the CPU; the features of two 128²
+    views agree within DINO_TOL of their scale (fp32, TF32 off)."""
+    import numpy as np
+    import torch
+    from manigaussian_tpu_torch.models.dinov2 import DinoV2ViT, save_hf_dir
+    from manigaussian_tpu_torch.models.foundation import \
+        create_feature_extractor
+    t_phase = time.time()
+    gen = torch.Generator().manual_seed(1)
+    model = DinoV2ViT(patch_size=14, width=64, layers=2, heads=2, pos_grid=5,
+                      swiglu=True)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            base = 1.0 if "norm" in name and name.endswith("weight") else 0.0
+            p.copy_(base + 0.1 * torch.randn(p.shape, generator=gen))
+    path = os.path.join(WORK, "dinov2_swiglu_dir")
+    save_hf_dir(path, model, size={"shortest_edge": 112},
+                crop_size={"height": 98, "width": 98})
+    rgb = torch.from_numpy(np.random.default_rng(1).uniform(
+        size=(2, 128, 128, 3)).astype(np.float32))
+    card = create_feature_extractor("dinov2", path, device="cuda")
+    cpu = create_feature_extractor("dinov2", path, device="cpu")
+    fc = card(rgb.cuda()).cpu()
+    fp = cpu(rgb)
+    scale = float(fp.abs().max())
+    err = float((fc - fp).abs().max())
+    ok = (card.model.swiglu and cpu.model.swiglu
+          and tuple(fc.shape) == (2, 128, 128, 64)
+          and bool(torch.isfinite(fc).all())
+          and err <= DINO_TOL * max(1.0, scale))
+    log("dino_swiglu", hidden=card.model.blocks[0].mlp.w3.in_features,
+        shape=list(fc.shape), max_abs_err_card_vs_cpu=err, scale=scale,
+        tol=DINO_TOL, seconds=time.time() - t_phase, ok=ok)
+    if not ok:
+        raise AssertionError(f"dino_swiglu: card against CPU {err} (scale "
+                             f"{scale}), shape {tuple(fc.shape)}")
+    return {"max_abs_err": err}
+
+
+def stand_in_bpe(path: str) -> str:
+    """A BPE merge list of CLIP's size (48,894 merges after a header line; a
+    few real-looking ones, then unique ones that never apply; its ids are
+    not CLIP's): the card machine has no vocab, and the CLIP provider needs
+    a tokenizer."""
+    import gzip
+    merges = ["o p", "op e", "ope n</w>", "t h", "th e</w>", "d r", "dr a",
+              "dra w", "draw e", "drawe r</w>"]
+    merges += [f"q{i} z{i}" for i in range(49152 - 256 - 2 - len(merges))]
+    with gzip.open(path, "wt", encoding="utf-8") as f:
+        f.write("#version: 0.2\n" + "\n".join(merges) + "\n")
+    return path
+
+
+def phase_towers_msgpack() -> dict:
+    """The three frozen towers through the port's `.msgpack` route, at tiny
+    seeded widths: a torch checkpoint of each (CLIP text: width 64, 2
+    layers, context 16, vocab 49408; DINOv2: patch 14, width 64, 2 layers;
+    SD VAE: ch 32, 4 levels), converted by the port's writer
+    (`tools/convert_weights`, flax's format in pure Python), loaded through
+    each tower's user-facing class on the card from the `.msgpack` and from
+    the checkpoint: their outputs equal bit for bit, and the file read back
+    and written again gives the same bytes."""
+    import torch
+    from manigaussian_tpu_torch.data.language import ClipRN50TextModel
+    from manigaussian_tpu_torch.models import clip_text as ct
+    from manigaussian_tpu_torch.models import sd_vae as sv
+    from manigaussian_tpu_torch.models.dinov2 import (DinoV2Extractor,
+                                                      DinoV2ViT)
+    from manigaussian_tpu_torch.models.foundation import \
+        SDVaeFeatureExtractor
+    from manigaussian_tpu_torch.tools import convert_weights as cw
+    t_phase = time.time()
+    d = os.path.join(WORK, "towers")
+    os.makedirs(d, exist_ok=True)
+    gen = torch.Generator().manual_seed(3)
+    clip = ct.ClipTextTransformer(context_length=16, width=64, heads=8,
+                                  layers=2, embed_dim=32).init_params(gen)
+    dino = DinoV2ViT(patch_size=14, width=64, layers=2, heads=1, pos_grid=5)
+    with torch.no_grad():
+        for p in dino.parameters():
+            p.copy_(0.1 * torch.randn(p.shape, generator=gen))
+    vae = sv.SDVae(ch=32).init_params(gen)
+    ckpts = {"clip": {k: v for k, v in clip.state_dict().items()},
+             "dinov2": dino.state_dict(), "sd_vae": {
+                 "state_dict": {f"first_stage_model.{k}": v
+                                for k, v in vae.state_dict().items()}}}
+    bpe = stand_in_bpe(os.path.join(d, "bpe.txt.gz"))
+    rgb = torch.linspace(0, 1, 2 * 64 * 64 * 3).reshape(2, 64, 64, 3).cuda()
+    ids = torch.zeros(2, 16, dtype=torch.long, device="cuda")
+    ids[0, :5] = torch.tensor([49406, 320, 1125, 539, 49407])
+    ids[1, :9] = torch.tensor([49406, 7, 70, 700, 7000, 17000, 27000, 37000,
+                               49407])
+
+    def outputs(name, path):
+        if name == "clip":
+            m = ClipRN50TextModel(path, bpe_path=bpe, device="cuda")
+            with torch.no_grad():
+                sent, toks = m.model(ids)
+            return [sent, toks, torch.from_numpy(
+                m.encode("open the drawer")[0])]
+        if name == "dinov2":
+            return [DinoV2Extractor(path, device="cuda")(rgb)]
+        return [SDVaeFeatureExtractor(path, feature_hw=64,
+                                      device="cuda")(rgb)]
+
+    res = {}
+    for name, sd in ckpts.items():
+        pt = os.path.join(d, f"{name}.pt")
+        mp = os.path.join(d, f"{name}.msgpack")
+        torch.save(sd, pt)
+        getattr(cw, f"convert_{name}")(pt, mp)
+        with open(mp, "rb") as f:
+            data = f.read()
+        direct, converted = outputs(name, pt), outputs(name, mp)
+        res[name] = {
+            "bytes": len(data),
+            "rewrite_equal": cw.msgpack_serialize(cw.msgpack_restore(data))
+            == data,
+            "dims": cw.load_converted(mp)["dims"],
+            "shapes": [list(t.shape) for t in converted],
+            "bitwise": all(torch.equal(a, b) for a, b in zip(direct,
+                                                            converted)),
+            "finite": all(bool(torch.isfinite(t).all()) for t in converted)}
+    ok = all(r["bitwise"] and r["rewrite_equal"] and r["finite"]
+             for r in res.values())
+    log("towers_msgpack", towers=res, seconds=time.time() - t_phase, ok=ok)
+    if not ok:
+        raise AssertionError(f"towers_msgpack: {res}")
+    return res
+
+
+# the near and far planes of the exported depth PNGs (24-bit fixed point
+# over 4.49 m: steps of 2.7e-7 m; the synthetic scene's depths lie within)
+EXPORT_NEAR, EXPORT_FAR = 0.01, 4.5
+
+
+def export_reference_demos(src: str, dst: str, task: str) -> float:
+    """Write the port's native demos under `src` in the reference's on-disk
+    layout under `dst` (as tests/test_import_rlbench.py builds it): a
+    pickled rlbench `Demo` of `Observation`s (classes from fabricated module
+    shims), the RGB PNGs, the depth as 24-bit RGB-packed PNGs between
+    EXPORT_NEAR and EXPORT_FAR, variation_descriptions.pkl and nerf_data
+    copied. Returns the largest depth error of the PNG round trip."""
+    import pickle
+    import types
+    import numpy as np
+    from manigaussian_tpu_torch.data import episode as ep
+    from manigaussian_tpu_torch.tools.import_rlbench import (decode_depth_png,
+                                                             encode_depth_png)
+    mods = {n: sys.modules.get(n) or types.ModuleType(n)
+            for n in ("rlbench", "rlbench.demo", "rlbench.backend",
+                      "rlbench.backend.observation")}
+
+    class Demo:
+        def __init__(self, observations):
+            self._observations = observations
+
+    class Observation:
+        def __init__(self, **kw):
+            self.__dict__.update(kw)
+
+    Demo.__module__, Demo.__qualname__ = "rlbench.demo", "Demo"
+    Observation.__module__ = "rlbench.backend.observation"
+    Observation.__qualname__ = "Observation"
+    mods["rlbench.demo"].Demo = Demo
+    mods["rlbench.backend.observation"].Observation = Observation
+    sys.modules.update(mods)
+    worst = 0.0
+    for path in ep.list_episodes(src, task):
+        demo = ep.load_episode(path)
+        out = os.path.join(dst, task, ep.VARIATIONS_ALL_FOLDER,
+                           ep.EPISODES_FOLDER, os.path.basename(path))
+        for sub in ("front_rgb", "front_depth"):
+            os.makedirs(os.path.join(out, sub), exist_ok=True)
+        obs = []
+        for t in range(len(demo)):
+            shutil.copy(os.path.join(path, "front_rgb", f"{t}.png"),
+                        os.path.join(out, "front_rgb", f"{t}.png"))
+            depth = ep.load_depth(demo.depth_paths["front"][t])
+            png = os.path.join(out, "front_depth", f"{t}.png")
+            encode_depth_png((depth - EXPORT_NEAR)
+                             / (EXPORT_FAR - EXPORT_NEAR)).save(png)
+            worst = max(worst, float(np.abs(decode_depth_png(
+                png, EXPORT_NEAR, EXPORT_FAR) - depth).max()))
+            obs.append(Observation(
+                gripper_open=float(demo.gripper_open[t]),
+                gripper_pose=np.asarray(demo.gripper_pose[t], np.float64),
+                gripper_joint_positions=np.asarray(
+                    demo.gripper_joint_positions[t], np.float64),
+                joint_velocities=np.asarray(demo.joint_velocities[t],
+                                            np.float64),
+                ignore_collisions=np.float64(demo.ignore_collisions[t]),
+                misc={"front_camera_extrinsics":
+                      demo.camera_extrinsics["front"][t],
+                      "front_camera_intrinsics":
+                      demo.camera_intrinsics["front"][t],
+                      "front_camera_near": EXPORT_NEAR,
+                      "front_camera_far": EXPORT_FAR}))
+        with open(os.path.join(out, "low_dim_obs.pkl"), "wb") as f:
+            pickle.dump(Demo(obs), f)
+        with open(os.path.join(out, "variation_descriptions.pkl"), "wb") as f:
+            pickle.dump(list(demo.descriptions), f)
+        shutil.copytree(os.path.join(path, ep.NERF_FOLDER),
+                        os.path.join(out, ep.NERF_FOLDER))
+    return worst
+
+
+IMPORT_STEPS = 3
+# the first step's losses on the imported demos against train_slice's on
+# the same seed, relative to max(1, |x|): the depths moved by the 24-bit
+# PNGs (≤ 2.7e-7 m) and the cameras by float32, so the point clouds differ
+# in the last bits and the kernels' bf16 matmuls may round a few of them
+# apart
+IMPORT_TOL = 2e-2
+
+
+def phase_imported_train(counters: dict, tr: dict) -> dict:
+    """The RLBench demo importer on the training path: train_slice's demos
+    exported in the reference's layout (`export_reference_demos`), imported
+    by `python -m manigaussian_tpu_torch.tools.import_rlbench` (a
+    subprocess, the user's command), then `w_geo` at full width for
+    IMPORT_STEPS steps and a resume through the train entry point on the
+    imported demos (`phase_train_slice`: the launches of every step, the
+    recon render's at step 0). The first step's losses beside train_slice's
+    on the same seed (within IMPORT_TOL), the depth round trip's error."""
+    t_phase = time.time()
+    ref = os.path.join(WORK, "rlbench_reference")
+    native = os.path.join(WORK, "rlbench_imported")
+    depth_err = export_reference_demos(tr["demos"], ref, TASK)
+    rc, out, err = run_cli(
+        ["-m", "manigaussian_tpu_torch.tools.import_rlbench", "--src", ref,
+         "--dst", native, "--tasks", TASK], 300)
+    if rc or json.loads(out.strip().splitlines()[-1]) != {TASK: 2}:
+        raise AssertionError(f"import_rlbench: exit {rc}\n{out}\n{err}")
+    it = phase_train_slice(counters, "w_geo", (), steps=IMPORT_STEPS,
+                           demos=native, label="imported_train")
+    ours, theirs = it["losses_first"], tr["losses_first"]
+    heads = ("total_loss", "trans_loss", "rot_loss", "grip_loss",
+             "collision_loss", "rgb_loss", "psnr")
+    diffs = {k: abs(ours[k] - theirs[k]) / max(1.0, abs(theirs[k]))
+             for k in heads}
+    ok = (max(diffs.values()) <= IMPORT_TOL and depth_err <= 1e-6
+          and all(it["launches"][k] for k in ("flash_self_attention_fwd",
+                                              "flash_self_attention_bwd",
+                                              "blend_fwd", "blend_bwd")))
+    log("imported_train", depth_png_max_err_m=depth_err,
+        first_step_imported=ours, first_step_train_slice=theirs,
+        rel_diff=diffs, tol=IMPORT_TOL, launches=it["launches"],
+        step_ms_median=it["step_ms"], seconds=time.time() - t_phase, ok=ok)
+    if not ok:
+        raise AssertionError(f"imported_train: {diffs}, depth {depth_err}")
+    return it
+
+
+SCALING_ITERS = 8
+SCALING_N, SCALING_SIZE = 65536, 128
+# the DP step's gradient buffer at w_geo width (PERF.md §5)
+W_GEO_PARAMS = 39_811_941
+
+
+def _launch_snapshot(counters: dict) -> dict:
+    return {k: fn.launches for k, fn in counters.items()}
+
+
+def phase_scaling(counters: dict) -> dict:
+    """The scaling twin (`python -m manigaussian_tpu_torch.bench_scaling`)
+    on the card. Two runs of two `--dist` ranks that share the card over
+    gloo (`--dist-backend gloo`): rank 0 in this process (its launches
+    counted), rank 1 a subprocess. The timed run (`--weak --train-step`,
+    65,536 Gaussians at 128², SCALING_ITERS iterations): strong and weak
+    render rows and the tiny config's DP rows at D = 1 (rank 0 alone) and
+    D = 2 (`platform_limited`: two ranks on one card, no scaling figure);
+    the `--comm-model --train-step` run: the render's and the `w_geo` DP
+    step's collective bytes, each t_comp the D = 1 time of this run. The
+    render's bytes equal the reckoning from its shapes; the DP step's
+    all-reduce equals the port's reckoning from its parameters and metrics
+    and holds at least the 39,811,941 float32 gradients. Launches by path:
+    each D = 1 render and each D = 2 render on rank 0 one blend forward and
+    one backward; the D = 1 tiny DP step `expected_launches`."""
+    import torch
+    from manigaussian_tpu_torch import bench_scaling as bs
+    from manigaussian_tpu_torch.parallel.distributed import (dist_spec,
+                                                             free_port)
+    t_phase = time.time()
+    out = os.path.join(WORK, "scaling.jsonl")
+    paths = {}
+    orig_render, orig_dp = bs.render_step, bs._dp_step
+
+    def counted(label, fn):
+        def call():
+            before = _launch_snapshot(counters)
+            res = fn()
+            acc = paths.setdefault(label, dict.fromkeys(counters, 0))
+            for k, v in _launch_snapshot(counters).items():
+                acc[k] += v - before[k]
+            return res
+        return call
+
+    def counted_render(run, scene, size, cfg, mesh=None):
+        d = 1 if mesh is None else mesh.size("tile")
+        return counted(f"scaling_render_d{d}" + ("_rank0" if d > 1 else ""),
+                       orig_render(run, scene, size, cfg, mesh))
+
+    def counted_dp(run, cfg, d, img):
+        # the timed rows' tiny config (32²) or the comm model's w_geo
+        agent, fn = orig_dp(run, cfg, d, img)
+        kind = "train" if img == 32 else "comm_train_w_geo"
+        return agent, counted(f"scaling_{kind}_d{d}"
+                              + ("_rank0" if d > 1 else ""), fn)
+
+    common = ["--n", str(SCALING_N), "--size", str(SCALING_SIZE), "--iters",
+              str(SCALING_ITERS), "--dist-backend", "gloo", "--out", out]
+    runs = {"timed": ["--weak", "--train-step"],
+            "comm_model": ["--comm-model", "--train-step"]}
+    bs.render_step, bs._dp_step = counted_render, counted_dp
+    try:
+        for flags in runs.values():
+            port = free_port()
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "manigaussian_tpu_torch.bench_scaling",
+                 "--dist", dist_spec(port, 2, 1), *common, *flags],
+                cwd=ROOT, text=True, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, start_new_session=True)
+            try:
+                bs.main(["--dist", dist_spec(port, 2, 0), *common, *flags])
+                _, err = proc.communicate(timeout=300)
+            finally:
+                if proc.poll() is None:
+                    os.killpg(proc.pid, 9)
+                    proc.communicate()
+            if proc.returncode:
+                raise AssertionError(f"scaling rank 1: exit {proc.returncode}"
+                                     f"\n{err[-3000:]}")
+    finally:
+        bs.render_step, bs._dp_step = orig_render, orig_dp
+    with open(out) as f:
+        rows = [json.loads(line) for line in f]
+    by = {(r["metric"], r["devices"]): r for r in rows}
+    n, s = SCALING_N, SCALING_SIZE
+    render_comm = by[("render_comm_model", 2)]
+    dp_comm = by[("dp_train_step_comm_model", 2)]
+    reckoned = {"all-reduce": 4 * 3 * n + 8, "all-gather": 4 * 7 * s * s,
+                "reduce-scatter": 0, "collective-permute": 0}
+    tiny = bs.tiny_config().method
+    renders = 2 * (SCALING_ITERS + 1)       # strong and weak, warm-up each
+    expect = {"scaling_render_d1": {"blend_fwd": renders,
+                                    "blend_bwd": renders},
+              "scaling_render_d2_rank0": {"blend_fwd": renders + 1,
+                                          "blend_bwd": renders + 1},
+              "scaling_train_d1": {}}
+    for step in range(SCALING_ITERS + 1):
+        for k, v in expected_launches(tiny, step).items():
+            expect["scaling_train_d1"][k] = \
+                expect["scaling_train_d1"].get(k, 0) + v
+    full = {p: {k: e.get(k, 0) for k in counters} for p, e in expect.items()}
+    got = {p: paths.get(p) for p in full}
+    wg = train_config("w_geo").method
+    w_geo_steps = {k: sum(expected_launches(wg, i)[k]
+                          for i in range(SCALING_ITERS + 1))
+                   for k in counters}
+    extra_ok = (paths.get("scaling_comm_train_w_geo_d1") == w_geo_steps
+                and paths.get("scaling_comm_train_w_geo_d2_rank0")
+                == expected_launches(wg, 0))
+    # the comm-model run renders once more at D = 1 (its t_comp, with its
+    # warm-up) and times the w_geo step at D = 1
+    comm_d1 = SCALING_ITERS + 1
+    full["scaling_render_d1"] = {
+        k: v + (comm_d1 if k.startswith("blend") else 0)
+        for k, v in full["scaling_render_d1"].items()}
+    ok = (all(by.get((m, d)) for m in ("rays_per_s_fwd_bwd",
+                                        "rays_per_s_per_device_weak",
+                                        "dp_train_steps_per_s")
+              for d in (1, 2))
+          and all(by[(m, 2)]["platform_limited"]
+                  and not by[(m, 1)]["platform_limited"]
+                  for m in ("rays_per_s_fwd_bwd", "dp_train_steps_per_s"))
+          and render_comm["collective_bytes"] == reckoned
+          and dp_comm["collective_bytes"]["all-reduce"]
+          == dp_comm["reckoned_all_reduce_bytes"]
+          and dp_comm["param_bytes"] >= 4 * W_GEO_PARAMS
+          and got == full and extra_ok)
+    log("scaling", rows=rows, launches_by_path=paths, expected=full,
+        expected_w_geo_d1=w_geo_steps,
+        render_bytes_reckoned=reckoned, seconds=time.time() - t_phase, ok=ok)
+    if not ok:
+        raise AssertionError(f"scaling: launches {got} against {full}, "
+                             f"rows {rows}")
+    return {"launches": paths, "rows": rows}
+
+
+EXTRAS_KNN_N = 16384
+KNN_REL = 1e-5
+# |a|² + |b|² − 2a·b in float32 cancels for near neighbours: each side's
+# rounding is within ≈ 20 units of 2^-24 of max|p|², whatever the order of
+# summation, so the card and the CPU may differ by 2^-18 · max|p|² (the k
+# smallest values move no more than the entries)
+KNN_CANCEL = 2.0 ** -18
+ATT3D_TOL = 1e-5
+SSIM_REL = 1e-5
+
+
+def phase_extras() -> dict:
+    """The library modules no training path uses, the card against the CPU:
+    `knn_mean_sq_dist` on the training frame's 16,384 points (true fp32):
+    on the points rounded to a 2^-6 grid, where the arithmetic is exact,
+    within KNN_REL relative, and as drawn within the cancellation bound
+    KNN_CANCEL · max|p|²; `Visual3DLangTransformer` at width 64 on a 10³
+    volume with 77 language tokens (output within ATT3D_TOL of its scale),
+    `ssim` on two 128² views (within SSIM_REL relative); and
+    `capture_trace` around one micro-config training step on the card: a
+    Chrome trace with its kernels."""
+    import numpy as np
+    import torch
+    from manigaussian_tpu_torch.config import micro_w_geo
+    from manigaussian_tpu_torch.agents.registry import create_agent
+    from manigaussian_tpu_torch.models.attention3d import \
+        Visual3DLangTransformer
+    from manigaussian_tpu_torch.ops.knn import knn_mean_sq_dist
+    from manigaussian_tpu_torch.ops.losses import ssim
+    from manigaussian_tpu_torch.utils.profiling import capture_trace
+    t_phase = time.time()
+    raw = torch.from_numpy(random_scene(EXTRAS_KNN_N)["means3d"])
+    grid = torch.round(raw * 64) / 64     # exact in float32 in any order
+    knn = {}
+    for name, pts in (("grid", grid), ("raw", raw)):
+        card, cpu = knn_mean_sq_dist(pts.cuda()).cpu(), knn_mean_sq_dist(pts)
+        knn[name] = {"max_rel_err": float(((card - cpu).abs()
+                                           / cpu.abs()).max()),
+                     "max_abs_err": float((card - cpu).abs().max()),
+                     "bound": KNN_CANCEL * float((pts * pts).sum(-1).max())}
+    knn_ms = cuda_ms(lambda: knn_mean_sq_dist(raw.cuda()), iters=5,
+                     warmup=1)
+    knn_ok = (knn["grid"]["max_rel_err"] <= KNN_REL
+              and knn["raw"]["max_abs_err"] <= knn["raw"]["bound"])
+
+    gen = torch.Generator().manual_seed(4)
+    att = Visual3DLangTransformer(64, 512, heads=4, dim_head=32)
+    with torch.no_grad():
+        for p in att.parameters():
+            p.copy_(0.1 * torch.randn(p.shape, generator=gen))
+    x = torch.randn(1, 10, 10, 10, 64, generator=gen)
+    lang = torch.randn(1, 77, 512, generator=gen)
+    a_cpu = att(x, lang).detach()
+    a_card = att.cuda()(x.cuda(), lang.cuda()).detach().cpu()
+    att_err = float((a_card - a_cpu).abs().max())
+    att_scale = max(1.0, float(a_cpu.abs().max()))
+
+    rng = np.random.default_rng(5)
+    i1, i2 = (torch.from_numpy(rng.uniform(size=(2, 128, 128, 3)).astype(
+        np.float32)) for _ in range(2))
+    s_cpu, s_card = float(ssim(i1, i2)), float(ssim(i1.cuda(), i2.cuda()))
+    ssim_err = abs(s_card - s_cpu) / abs(s_cpu)
+
+    agent = create_agent(micro_w_geo(), device="cuda")
+    batch = micro_train_batch(b=1)
+    agent.update(batch, torch.Generator().manual_seed(0))    # warm-up
+    trace_dir = os.path.join(WORK, "trace")
+    with capture_trace(trace_dir):
+        float(agent.update(batch, torch.Generator().manual_seed(1))
+              ["total_loss"])
+    files = os.listdir(trace_dir)
+    with open(os.path.join(trace_dir, files[0])) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    ok = (knn_ok and att_err <= ATT3D_TOL * att_scale
+          and ssim_err <= SSIM_REL and len(files) == 1 and kernels > 0)
+    log("extras", knn_points=EXTRAS_KNN_N, knn=knn,
+        knn_tol={"grid": f"{KNN_REL} relative",
+                 "raw": "2^-18 · max|p|² absolute"},
+        knn_card_ms=knn_ms, attention3d_max_abs_err=att_err,
+        attention3d_scale=att_scale, attention3d_tol=ATT3D_TOL,
+        ssim=[s_card, s_cpu], ssim_rel_err=ssim_err, ssim_tol=SSIM_REL,
+        trace_file=files, trace_kernel_events=kernels,
+        seconds=time.time() - t_phase, ok=ok)
+    if not ok:
+        raise AssertionError(f"extras: knn {knn}, attention3d {att_err}, "
+                             f"ssim {ssim_err}, trace {files} {kernels}")
+    return {}
+
+
 def main(argv) -> int:
     if argv not in ([], ["--flash-times"], ["--blend-times"], ["--embed-ab"],
                     ["--conv-times"], ["--gnf-steps"], ["--step-times"]):
@@ -3644,6 +4154,11 @@ def main(argv) -> int:
     ad = phase_adam_slice(counters, tr["demos"], tr["step_ms"])
     dk = phase_disk_slice(counters, tr["demos"])
     tl = phase_two_level(counters)
+    phase_dino_swiglu()
+    phase_towers_msgpack()
+    it = phase_imported_train(counters, tr)
+    sc = phase_scaling(counters)
+    phase_extras()
     # launches on the main paths, each read just after its run: the full
     # model's training run (`launches`: w_geo_sem_dyna, the one path that
     # launches every kernel of the paths), and every path by name, the bench
@@ -3667,7 +4182,8 @@ def main(argv) -> int:
              "eval_w_geo_transcript": rp["transcript_launches"],
              "train_w_geo_adam": ad["launches"],
              "train_w_geo_native_replay": dk["launches"],
-             "render_two_level": tl["launches"]}
+             "render_two_level": tl["launches"],
+             "train_w_geo_imported": it["launches"], **sc["launches"]}
     # every kernel of a dp_slice run's path (the flash and blend pairs) was
     # launched there (phase_dp_slice also holds each rank to its count)
     for run, c in dp["launches"].items():

@@ -266,3 +266,157 @@ def dinov2_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
         out[pre + "ls2.gamma"] = _t(blk["ls2_gamma"])
         i += 1
     return out
+
+
+# ------------------------------------------- the inverses, for the writer
+def _np(t) -> np.ndarray:
+    return np.ascontiguousarray(
+        torch.as_tensor(t).detach().float().cpu().numpy())
+
+
+def _flax_dense(sd: Mapping, prefix: str) -> Dict[str, np.ndarray]:
+    out = {"kernel": _np(torch.as_tensor(sd[prefix + "weight"]).T)}
+    if prefix + "bias" in sd:
+        out["bias"] = _np(sd[prefix + "bias"])
+    return out
+
+
+def _flax_norm(sd: Mapping, prefix: str) -> Dict[str, np.ndarray]:
+    return {"scale": _np(sd[prefix + "weight"]),
+            "bias": _np(sd[prefix + "bias"])}
+
+
+def _hwio(w) -> np.ndarray:
+    """OIHW → HWIO."""
+    return _np(torch.as_tensor(w).permute(2, 3, 1, 0))
+
+
+_CLIP_BLOCK = (("ln_1", "ln_1"), ("ln_2", "ln_2"),
+               ("out_proj", "attn.out_proj"), ("c_fc", "mlp.c_fc"),
+               ("c_proj", "mlp.c_proj"))
+
+
+def clip_text_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """The flax `ClipTextTransformer` variables → models/clip_text
+    .ClipTextTransformer state dict (OpenAI names)."""
+    p = variables.get("params", variables)
+    out: Dict[str, torch.Tensor] = {
+        "token_embedding.weight": _t(p["token_embedding"]),
+        "positional_embedding": _t(p["positional_embedding"]),
+        "text_projection": _t(p["text_projection"])}
+    _norm(p["ln_final"], "ln_final.", out)
+    i = 0
+    while f"resblock_{i}" in p:
+        blk, pre = p[f"resblock_{i}"], f"transformer.resblocks.{i}."
+        out[pre + "attn.in_proj_weight"] = _t(blk["in_proj"]["kernel"]).T \
+            .contiguous()
+        out[pre + "attn.in_proj_bias"] = _t(blk["in_proj"]["bias"])
+        for name, dst in _CLIP_BLOCK:
+            (_norm if name.startswith("ln") else _dense)(
+                blk[name], f"{pre}{dst}.", out)
+        i += 1
+    return out
+
+
+def clip_text_variables(sd: Mapping) -> Dict:
+    """The inverse of `clip_text_state_dict`: an OpenAI CLIP text state dict
+    → flax variables ({"params": ...}, float32 numpy), the JAX package's
+    `load_openai_state_dict` layout."""
+    p: Dict = {"token_embedding": _np(sd["token_embedding.weight"]),
+               "positional_embedding": _np(sd["positional_embedding"]),
+               "text_projection": _np(sd["text_projection"]),
+               "ln_final": _flax_norm(sd, "ln_final.")}
+    layers = max(int(k.split(".")[2]) for k in sd
+                 if k.startswith("transformer.resblocks.")) + 1
+    for i in range(layers):
+        pre = f"transformer.resblocks.{i}."
+        blk = {"in_proj": {"kernel": _np(torch.as_tensor(
+                   sd[pre + "attn.in_proj_weight"]).T),
+                   "bias": _np(sd[pre + "attn.in_proj_bias"])}}
+        for name, src in _CLIP_BLOCK:
+            blk[name] = (_flax_norm if name.startswith("ln") else
+                         _flax_dense)(sd, f"{pre}{src}.")
+        p[f"resblock_{i}"] = blk
+    return {"params": p}
+
+
+def dinov2_variables(sd: Mapping) -> Dict:
+    """The inverse of `dinov2_state_dict`: a torch-hub DINOv2 state dict →
+    the flax `DinoV2ViT` variables (the JAX package's
+    `load_dinov2_state_dict` layout; the mask token left out)."""
+    p: Dict = {"cls_token": _np(sd["cls_token"]),
+               "pos_embed": _np(sd["pos_embed"]),
+               "patch_embed": {"kernel": _hwio(sd["patch_embed.proj.weight"]),
+                               "bias": _np(sd["patch_embed.proj.bias"])},
+               "norm": _flax_norm(sd, "norm.")}
+    if "register_tokens" in sd:
+        p["register_tokens"] = _np(sd["register_tokens"])
+    layers = max(int(k.split(".")[1]) for k in sd
+                 if k.startswith("blocks.")) + 1
+    for i in range(layers):
+        pre = f"blocks.{i}."
+        blk = {"norm1": _flax_norm(sd, pre + "norm1."),
+               "norm2": _flax_norm(sd, pre + "norm2."),
+               "ls1_gamma": _np(sd[pre + "ls1.gamma"]),
+               "ls2_gamma": _np(sd[pre + "ls2.gamma"])}
+        for name, src in (("qkv", "attn.qkv"), ("proj", "attn.proj"),
+                          ("fc1", "mlp.fc1"), ("fc2", "mlp.fc2")):
+            blk[name] = _flax_dense(sd, f"{pre}{src}.")
+        p[f"block_{i}"] = blk
+    return {"params": p}
+
+
+# CompVis names → flax SDVae module names (the inverse of _VAE_NAMES)
+_VAE_FLAX = ((r"down\.(\d+)\.block\.(\d+)", r"down_\1_block_\2"),
+             (r"down\.(\d+)\.downsample\.conv", r"down_\1_downsample"),
+             (r"up\.(\d+)\.block\.(\d+)", r"up_\1_block_\2"),
+             (r"up\.(\d+)\.upsample\.conv", r"up_\1_upsample"),
+             (r"mid\.(block_\d|attn_\d)", r"mid_\1"))
+_VAE_PARTS = ("encoder.", "decoder.", "quant_conv.", "post_quant_conv.")
+
+
+def sd_vae_variables(sd: Mapping) -> Dict:
+    """The inverse of `sd_vae_state_dict`: a CompVis VAE state dict (with
+    or without the `first_stage_model.` prefix; the encoder, decoder and the
+    two quant convs, other keys left out) → the flax `SDVae` variables
+    (conv kernels HWIO, norm `scale`)."""
+    from manigaussian_tpu_torch.models.sd_vae import strip_compvis_prefix
+    params: Dict = {}
+    for key, value in strip_compvis_prefix(sd).items():
+        if not key.startswith(_VAE_PARTS):
+            continue
+        prefix, leaf = key.rsplit(".", 1)
+        for pat, rep in _VAE_FLAX:
+            prefix = re.sub(pat, rep, prefix)
+        node = params
+        for name in prefix.split("."):
+            node = node.setdefault(name, {})
+        w = torch.as_tensor(value)
+        if leaf == "bias":
+            node["bias"] = _np(w)
+        elif w.dim() == 4:
+            node["kernel"] = _hwio(w)
+        else:
+            node["scale"] = _np(w)
+    return {"params": params}
+
+
+def attention3d_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """The flax `Visual3DLangTransformer` variables →
+    models/attention3d.Visual3DLangTransformer state dict. The linear
+    attention's 1×1×1 convs are DHWIO kernels [1, 1, 1, in, out]."""
+    p = variables.get("params", variables)
+    out: Dict[str, torch.Tensor] = {}
+    for i, name in enumerate(("norm1", "norm2", "norm3")):
+        _norm(p[f"LayerNorm_{i}"], name + ".", out)
+    lin = p["self_attn"]
+    out["self_attn.to_qkv.weight"] = _t(lin["to_qkv"]["kernel"][0, 0, 0]).T \
+        .contiguous()
+    out["self_attn.to_out.weight"] = _t(lin["to_out"]["kernel"][0, 0, 0]).T \
+        .contiguous()
+    out["self_attn.to_out.bias"] = _t(lin["to_out"]["bias"])
+    for name in ("to_q", "to_k", "to_v", "to_out"):
+        _dense(p["cross_attn"][name], f"cross_attn.{name}.", out)
+    _dense(p["Dense_0"], "ff_in.", out)
+    _dense(p["Dense_1"], "ff_out.", out)
+    return out

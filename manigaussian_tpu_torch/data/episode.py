@@ -9,7 +9,7 @@ NeRFTaskRecorder.save `yarr/utils/video_utils.py:219-278`) with two
 deliberate deviations noted inline below (plain-array npz instead of a
 pickled rlbench Demo; float32 .npy depth instead of 24-bit PNG). Datasets
 generated by the reference tooling therefore do NOT load directly — convert
-them once with `python -m manigaussian_tpu.tools.import_rlbench` (which
+them once with `python -m manigaussian_tpu_torch.tools.import_rlbench` (which
 unpickles `low_dim_obs.pkl` through class shims and rescales PNG depth by
 the stored near/far planes); `nerf_data/` is byte-identical in both layouts:
 

@@ -76,8 +76,8 @@ class ClipRN50TextModel:
     sentence = ln_final at EOT @ text_projection [1024], tokens = ln_final's
     outputs [77, 512] (clip.py:479 encode_text_with_embeddings), through
     `models/clip_text.ClipTextTransformer` (8 heads) and the BPE tokenizer.
-    `checkpoint_path` is a path or a state dict. A `.msgpack` file (the JAX
-    package's converted weights) is not read (ROADMAP.md A.6)."""
+    `checkpoint_path` is a path or a state dict; a `.msgpack` file is the
+    flax tower of `tools/convert_weights clip` (either package's)."""
 
     def __init__(self, checkpoint_path, bpe_path: str | None = None,
                  device: DeviceLike = None):
@@ -87,15 +87,20 @@ class ClipRN50TextModel:
             ClipBPETokenizer
         from manigaussian_tpu_torch.models import clip_text as ct
 
-        if isinstance(checkpoint_path, str) and \
-                checkpoint_path.endswith(".msgpack"):
-            raise NotImplementedError(
-                "converted .msgpack CLIP weights are not read by the port "
-                "(ROADMAP.md A.6); pass the OpenAI .pt checkpoint")
         self.device = resolve_device(device)
         self.tokenizer = ClipBPETokenizer(bpe_path)
-        sd = ct.load_openai_state_dict(checkpoint_path)
-        self.model = ct.ClipTextTransformer(**ct.model_dims_from_state_dict(sd))
+        if isinstance(checkpoint_path, str) and \
+                checkpoint_path.endswith(".msgpack"):
+            from manigaussian_tpu_torch.convert import clip_text_state_dict
+            from manigaussian_tpu_torch.tools.convert_weights import \
+                load_converted
+            payload = load_converted(checkpoint_path)
+            dims = payload["dims"]
+            sd = clip_text_state_dict(payload["variables"])
+        else:
+            sd = ct.load_openai_state_dict(checkpoint_path)
+            dims = ct.model_dims_from_state_dict(sd)
+        self.model = ct.ClipTextTransformer(**dims)
         self.model.load_state_dict(sd)
         self.model.to(self.device).eval()
 

@@ -8,10 +8,11 @@ patch grid, bilinear resize to the image.
 
 Architecture (published DINOv2): a p×p conv patch embedding, CLS, the
 position embeddings resized bilinearly to the patch grid, optional register
-tokens after CLS, pre-norm blocks with LayerScale (GELU MLP ×4), a final
-LayerNorm. The parameters carry the torch-hub names (`blocks.{i}.attn.qkv`,
-`blocks.{i}.ls1.gamma`, ...), so a facebookresearch/dinov2 state dict loads
-as it is. Attention is plain matmul + softmax in the JAX module's order, its
+tokens after CLS, pre-norm blocks with LayerScale (an MLP of `mlp_ratio` ×
+width through the config's activation, or the SwiGLU MLP of the giant
+model), a final LayerNorm. The parameters carry the torch-hub names
+(`blocks.{i}.attn.qkv`, `blocks.{i}.ls1.gamma`, ...), so a
+facebookresearch/dinov2 state dict loads as it is. Attention is plain matmul + softmax in the JAX module's order, its
 scores divided by √d as a tensor.
 
 A local Hugging Face DINOv2 directory (`config.json`,
@@ -76,25 +77,75 @@ class _Attention(nn.Module):
         return self.proj(o)
 
 
+def _gelu_new(x: torch.Tensor) -> torch.Tensor:
+    return 0.5 * x * (1.0 + torch.tanh(math.sqrt(2.0 / math.pi)
+                                       * (x + 0.044715 * torch.pow(x, 3.0))))
+
+
+# `hidden_act` of a DINOv2 config → what `transformers`' ACT2FN computes
+ACTIVATIONS = {
+    "gelu": F.gelu,
+    "gelu_new": _gelu_new,
+    "gelu_pytorch_tanh": lambda x: F.gelu(x, approximate="tanh"),
+    "quick_gelu": lambda x: x * torch.sigmoid(1.702 * x),
+    "relu": F.relu,
+    "silu": F.silu,
+    "swish": F.silu,
+}
+
+
+def activation(name: str):
+    if name not in ACTIVATIONS:
+        raise ValueError(f"DINOv2 hidden_act {name!r} is not one of "
+                         f"{sorted(ACTIVATIONS)}")
+    return ACTIVATIONS[name]
+
+
+def swiglu_hidden(width: int, mlp_ratio: float) -> int:
+    """The SwiGLU MLP's hidden width (torch-hub `SwiGLUFFNFused`,
+    `transformers`' `Dinov2SwiGLUFFN`): two thirds of width · mlp_ratio,
+    rounded up to a multiple of 8."""
+    return (int(int(width * mlp_ratio) * 2 / 3) + 7) // 8 * 8
+
+
 class _Mlp(nn.Module):
-    def __init__(self, width: int, hidden: int):
+    def __init__(self, width: int, hidden: int, act: str = "gelu"):
         super().__init__()
         self.fc1 = nn.Linear(width, hidden)
         self.fc2 = nn.Linear(hidden, width)
+        self.act = activation(act)
 
     def forward(self, x):
-        return self.fc2(F.gelu(self.fc1(x)))
+        return self.fc2(self.act(self.fc1(x)))
+
+
+class _SwiGLU(nn.Module):
+    """w3(silu(x1) · x2), where x1, x2 = chunk(w12(x), 2) (torch-hub names
+    `mlp.w12` / `mlp.w3`; HF's `weights_in` / `weights_out`)."""
+
+    def __init__(self, width: int, hidden: int):
+        super().__init__()
+        self.w12 = nn.Linear(width, 2 * hidden)
+        self.w3 = nn.Linear(hidden, width)
+
+    def forward(self, x):
+        x1, x2 = self.w12(x).chunk(2, dim=-1)
+        return self.w3(F.silu(x1) * x2)
 
 
 class DinoBlock(nn.Module):
-    def __init__(self, width: int, heads: int, mlp_hidden: int,
-                 eps: float = LN_EPS):
+    def __init__(self, width: int, heads: int, mlp_ratio: float = 4.0,
+                 eps: float = LN_EPS, act: str = "gelu",
+                 swiglu: bool = False):
         super().__init__()
         self.norm1 = nn.LayerNorm(width, eps=eps)
         self.attn = _Attention(width, heads)
         self.ls1 = _LayerScale(width)
         self.norm2 = nn.LayerNorm(width, eps=eps)
-        self.mlp = _Mlp(width, mlp_hidden)
+        # under SwiGLU the activation is SiLU whatever `act` says, as in
+        # transformers, which ignores hidden_act there
+        self.mlp = (_SwiGLU(width, swiglu_hidden(width, mlp_ratio)) if swiglu
+                    else _Mlp(width, int(width * mlp_ratio), act))
         self.ls2 = _LayerScale(width)
 
     def forward(self, x):
@@ -105,16 +156,19 @@ class DinoBlock(nn.Module):
 class DinoV2ViT(nn.Module):
     """`pos_resize`: how the position grid is resized to the patch grid,
     "bilinear" as `jax.image.resize` (the JAX module) or "bicubic" as the
-    HF model (`F.interpolate`, no antialias)."""
+    HF model (`F.interpolate`, no antialias). `act` names the MLP's
+    activation (`ACTIVATIONS`); `swiglu` takes the SwiGLU MLP instead."""
 
     def __init__(self, patch_size: int = 14, width: int = 1024,
                  layers: int = 24, heads: int = 16, num_registers: int = 0,
-                 pos_grid: int = 37, mlp_hidden: int = 0,
-                 eps: float = LN_EPS, pos_resize: str = "bilinear"):
+                 pos_grid: int = 37, mlp_ratio: float = 4.0,
+                 eps: float = LN_EPS, pos_resize: str = "bilinear",
+                 act: str = "gelu", swiglu: bool = False):
         super().__init__()
         self.patch_size, self.width = patch_size, width
         self.num_registers, self.pos_grid = num_registers, pos_grid
         self.pos_resize = pos_resize
+        self.mlp_ratio, self.act, self.swiglu = mlp_ratio, act, swiglu
         self.patch_embed = nn.Module()
         self.patch_embed.proj = nn.Conv2d(3, width, patch_size,
                                           stride=patch_size)
@@ -124,8 +178,8 @@ class DinoV2ViT(nn.Module):
         if num_registers:
             self.register_tokens = nn.Parameter(
                 torch.zeros(1, num_registers, width))
-        self.blocks = nn.ModuleList(DinoBlock(width, heads,
-                                              mlp_hidden or 4 * width, eps)
+        self.blocks = nn.ModuleList(DinoBlock(width, heads, mlp_ratio, eps,
+                                              act, swiglu)
                                     for _ in range(layers))
         self.norm = nn.LayerNorm(width, eps=eps)
 
@@ -191,18 +245,21 @@ class DinoV2Extractor(FeatureExtractor):
     in [0, 1] → resize to the smallest multiple of the patch that covers the
     image (140² for 128² at patch 14) → ImageNet normalization →
     x_norm_patchtokens on the patch grid → resized back to [B, H, W, width].
-    `checkpoint` is a torch-hub state dict or its file; a converted
-    `.msgpack` needs flax and raises (ROADMAP A.6)."""
+    `checkpoint` is a torch-hub state dict or its file, or a `.msgpack` of
+    `tools/convert_weights dinov2` (either package's)."""
 
     def __init__(self, checkpoint, device: DeviceLike = None):
-        if isinstance(checkpoint, str) and checkpoint.endswith(".msgpack"):
-            raise NotImplementedError(
-                "a converted .msgpack DINOv2 needs flax to read; the port "
-                "loads the torch-hub state dict itself (reading .msgpack is "
-                "ROADMAP A.6, tools/convert_weights)")
         self.device = resolve_device(device)
-        sd = load_hub_state_dict(checkpoint)
-        dims = dims_from_state_dict(sd)
+        if isinstance(checkpoint, str) and checkpoint.endswith(".msgpack"):
+            from manigaussian_tpu_torch.convert import dinov2_state_dict
+            from manigaussian_tpu_torch.tools.convert_weights import \
+                load_converted
+            payload = load_converted(checkpoint)
+            dims, sd = payload["dims"], dinov2_state_dict(
+                payload["variables"])
+        else:
+            sd = load_hub_state_dict(checkpoint)
+            dims = dims_from_state_dict(sd)
         self.patch = dims["patch_size"]
         self.model = DinoV2ViT(**dims).load_hub(sd).requires_grad_(
             False).eval().to(self.device)
@@ -275,7 +332,8 @@ def _hf_layer_names(i: int) -> Dict[str, str]:
     hf, hub = f"encoder.layer.{i}.", f"blocks.{i}."
     pairs = {"norm1": "norm1", "norm2": "norm2", "attn.proj":
              "attention.output.dense", "mlp.fc1": "mlp.fc1",
-             "mlp.fc2": "mlp.fc2"}
+             "mlp.fc2": "mlp.fc2", "mlp.w12": "mlp.weights_in",
+             "mlp.w3": "mlp.weights_out"}
     out = {hub + a + s: hf + b + s for a, b in pairs.items()
            for s in (".weight", ".bias")}
     out[hub + "ls1.gamma"] = hf + "layer_scale1.lambda1"
@@ -300,7 +358,8 @@ def hub_from_hf(sd: Mapping[str, torch.Tensor], layers: int
           for k, v in sd.items()}
     hub = {a: sd[b] for a, b in _HF_TOP.items() if b in sd}
     for i in range(layers):
-        hub.update({a: sd[b] for a, b in _hf_layer_names(i).items()})
+        hub.update({a: sd[b] for a, b in _hf_layer_names(i).items()
+                    if b in sd})
         att = f"encoder.layer.{i}.attention.attention."
         for s in ("weight", "bias"):
             hub[f"blocks.{i}.attn.qkv.{s}"] = torch.cat(
@@ -313,7 +372,8 @@ def hf_from_hub(hub: Mapping[str, torch.Tensor], layers: int
     """The inverse of `hub_from_hf` (the writer of `save_hf_dir`)."""
     sd = {b: hub[a] for a, b in _HF_TOP.items() if a in hub}
     for i in range(layers):
-        sd.update({b: hub[a] for a, b in _hf_layer_names(i).items()})
+        sd.update({b: hub[a] for a, b in _hf_layer_names(i).items()
+                   if a in hub})
         att = f"encoder.layer.{i}.attention.attention."
         for s in ("weight", "bias"):
             q, k, v = hub[f"blocks.{i}.attn.qkv.{s}"].chunk(3)
@@ -324,21 +384,20 @@ def hf_from_hub(hub: Mapping[str, torch.Tensor], layers: int
 
 def save_hf_dir(path: str, model: DinoV2ViT, size: Dict = None,
                 crop_size: Dict = None) -> None:
-    """Write `model` as a Hugging Face DINOv2 directory: config.json,
-    preprocessor_config.json (a BitImageProcessor's: resize the short side
-    to `size`, bicubic, centre crop to `crop_size`, ImageNet mean and std)
-    and model.safetensors."""
+    """Write `model` as a Hugging Face DINOv2 directory: config.json (its
+    MLP's ratio and activation, SwiGLU or not), preprocessor_config.json (a
+    BitImageProcessor's: resize the short side to `size`, bicubic, centre
+    crop to `crop_size`, ImageNet mean and std) and model.safetensors."""
     os.makedirs(path, exist_ok=True)
-    width = model.width
     config = {"model_type": "dinov2", "architectures": ["Dinov2Model"],
-              "hidden_size": width, "num_hidden_layers": len(model.blocks),
+              "hidden_size": model.width,
+              "num_hidden_layers": len(model.blocks),
               "num_attention_heads": model.blocks[0].attn.heads,
-              "mlp_ratio": model.blocks[0].mlp.fc1.out_features // width,
-              "patch_size": model.patch_size,
+              "mlp_ratio": model.mlp_ratio, "patch_size": model.patch_size,
               "image_size": model.pos_grid * model.patch_size,
-              "layer_norm_eps": model.norm.eps, "hidden_act": "gelu",
-              "qkv_bias": True, "use_swiglu_ffn": False, "num_channels": 3,
-              "layerscale_value": 1.0}
+              "layer_norm_eps": model.norm.eps, "hidden_act": model.act,
+              "qkv_bias": True, "use_swiglu_ffn": model.swiglu,
+              "num_channels": 3, "layerscale_value": 1.0}
     proc = {"image_processor_type": "BitImageProcessor", "do_resize": True,
             "size": size or {"shortest_edge": 256}, "resample": 3,
             "do_center_crop": True,
@@ -435,14 +494,13 @@ class HFImageProcessor:
 def load_hf_dir(path: str) -> Tuple[DinoV2ViT, HFImageProcessor]:
     """A local HF DINOv2 directory → (the ViT with its weights, the
     processor). The weights come from model.safetensors (read here) or
-    pytorch_model.bin."""
+    pytorch_model.bin. The MLP follows the config: SwiGLU under
+    `use_swiglu_ffn`, else `hidden_act` (`ACTIVATIONS`; another name
+    raises)."""
     with open(os.path.join(path, "config.json")) as f:
         cfg = json.load(f)
     with open(os.path.join(path, "preprocessor_config.json")) as f:
         proc = json.load(f)
-    if cfg.get("use_swiglu_ffn") or cfg.get("hidden_act", "gelu") != "gelu":
-        raise NotImplementedError("DINOv2 with a SwiGLU or non-GELU MLP is "
-                                  "not ported")
     st = os.path.join(path, "model.safetensors")
     sd = (read_safetensors(st) if os.path.isfile(st) else
           torch.load(os.path.join(path, "pytorch_model.bin"),
@@ -455,8 +513,10 @@ def load_hf_dir(path: str) -> Tuple[DinoV2ViT, HFImageProcessor]:
         num_registers=(int(hub["register_tokens"].shape[1])
                        if "register_tokens" in hub else 0),
         pos_grid=int(cfg["image_size"]) // int(cfg["patch_size"]),
-        mlp_hidden=int(width * cfg.get("mlp_ratio", 4)),
-        eps=float(cfg.get("layer_norm_eps", LN_EPS)), pos_resize="bicubic")
+        mlp_ratio=cfg.get("mlp_ratio", 4),
+        eps=float(cfg.get("layer_norm_eps", LN_EPS)), pos_resize="bicubic",
+        act=cfg.get("hidden_act", "gelu"),
+        swiglu=bool(cfg.get("use_swiglu_ffn", False)))
     return model.load_hub(hub), HFImageProcessor(proc)
 
 

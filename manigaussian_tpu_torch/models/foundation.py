@@ -228,7 +228,8 @@ class SDVaeFeatureExtractor(FeatureExtractor):
     decoder tap ([B, 512, 128, 128] at 512²), resized back to the input.
     `checkpoint_path` None draws random weights from a generator seeded
     `SEED` (a resumed run rebuilds the same tower); a CompVis `.ckpt`/`.pt`
-    loads by name."""
+    loads by name, a `.msgpack` of `tools/convert_weights sd_vae` (either
+    package's) through `convert.sd_vae_state_dict`."""
 
     def __init__(self, checkpoint_path: Optional[str],
                  feature_hw: Optional[int] = None, device: DeviceLike = None):
@@ -239,10 +240,12 @@ class SDVaeFeatureExtractor(FeatureExtractor):
         if checkpoint_path is None:
             model = sv.SDVae().init_params(torch.Generator().manual_seed(SEED))
         elif str(checkpoint_path).endswith(".msgpack"):
-            raise NotImplementedError(
-                "a converted .msgpack SD VAE needs flax to read; the port "
-                "loads the CompVis .ckpt/.pt itself (reading .msgpack is "
-                "ROADMAP A.6, tools/convert_weights)")
+            from manigaussian_tpu_torch.convert import sd_vae_state_dict
+            from manigaussian_tpu_torch.tools.convert_weights import \
+                load_converted
+            payload = load_converted(checkpoint_path)
+            model = sv.SDVae(**payload["dims"]).load_compvis(
+                sd_vae_state_dict(payload["variables"]))
         else:
             obj = torch.load(checkpoint_path, map_location="cpu")
             sd = (obj.get("state_dict", obj) if isinstance(obj, dict)
@@ -299,12 +302,13 @@ def create_feature_extractor(name: Optional[str],
     """The factory of cfg.method.neural_renderer.foundation_model_name
     (None / 'diffusion' / 'dinov2') and its `foundation_checkpoint`, with the
     JAX package's routes and warnings:
-      * 'dinov2' + a torch-hub `.pt` file → DinoV2Extractor; a local
+      * 'dinov2' + a torch-hub `.pt` or a converted `.msgpack` file →
+        DinoV2Extractor; a local
         Hugging Face directory → DinoV2DirExtractor (read without
         `transformers`); none → the stub, warned;
       * 'diffusion' + "random-init" → the SD VAE with random weights (the
-        real compute, features not semantic); + a CompVis checkpoint file →
-        the SD VAE; none → the stub, warned;
+        real compute, features not semantic); + a CompVis checkpoint or a
+        converted `.msgpack` file → the SD VAE; none → the stub, warned;
       * any other name → the stub.
     The tower is built on `device` (the agent's)."""
     if name is None:
@@ -335,8 +339,9 @@ def create_feature_extractor(name: Optional[str],
         warnings.warn(
             "foundation_model_name='diffusion' without a checkpoint: "
             "semantic supervision falls back to StubFeatureExtractor "
-            "statistics. Mount a StableDiffusion checkpoint (CompVis .ckpt) "
-            "and set neural_renderer.foundation_checkpoint, or 'random-init', "
+            "statistics. Mount a StableDiffusion checkpoint (CompVis .ckpt "
+            "or a converted .msgpack from tools/convert_weights sd_vae) and "
+            "set neural_renderer.foundation_checkpoint, or 'random-init', "
             "for the real ODISE feature path (models/sd_vae.py).",
             UserWarning, stacklevel=2)
         return StubFeatureExtractor(device=device)

@@ -27,10 +27,18 @@ and sliced the same way, so the sharded step equals the one-process step.
 For disjoint data instead, each rank samples from `disjoint_replay` (a
 `TaskUniformReplay(shard=(rank, n))`) and its local batch is already its
 rows (`local_batch_to_global`).
+
+`count_collective_bytes()` counts, while its block runs, the output bytes of
+every logical collective above under the names of the JAX HLO count
+(`bench_scaling.py`): "all-reduce" (`all_reduce`, `flat_all_reduce`, and so
+`replicate`'s backward) and "all-gather" (`gather_rows`, and so
+`gather_patches`, though gloo runs it as an all-reduce of zero-filled full
+tensors). Outside such a block nothing is counted.
 """
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
 import socket
@@ -117,7 +125,32 @@ def barrier() -> None:
         dist.barrier()
 
 
+COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter",
+               "collective-permute")
+_counts: Optional[Dict[str, int]] = None
+
+
+@contextlib.contextmanager
+def count_collective_bytes():
+    """Yields a dict (COLLECTIVES → bytes) to which every collective of
+    this process adds its output's bytes until the block ends; the
+    autograd functions' backwards count too, on whatever thread runs them.
+    Blocks nest: the inner one counts alone."""
+    global _counts
+    outer, _counts = _counts, dict.fromkeys(COLLECTIVES, 0)
+    try:
+        yield _counts
+    finally:
+        _counts = outer
+
+
+def _count(kind: str, t: torch.Tensor) -> None:
+    if _counts is not None:
+        _counts[kind] += t.numel() * t.element_size()
+
+
 def _reduce_(t: torch.Tensor, op: str, group) -> torch.Tensor:
+    _count("all-reduce", t)
     dist.all_reduce(t, op=_OPS[op], group=group)
     if op == "mean":
         t /= dist.get_world_size(group)
@@ -138,6 +171,7 @@ def gather_rows(t: torch.Tensor, group=None) -> torch.Tensor:
     n, i = dist.get_world_size(group), dist.get_rank(group)
     full = t.new_zeros((n * t.shape[0],) + tuple(t.shape[1:]))
     full[i * t.shape[0]:(i + 1) * t.shape[0]] = t.detach()
+    _count("all-gather", full)
     dist.all_reduce(full, group=group)
     return full
 
@@ -163,12 +197,16 @@ class _Replicate(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *grads):   # an unused output's gradient comes as zeros
-        return (None,) + tuple(flat_all_reduce(grads, "sum", ctx.group))
+        need = ctx.needs_input_grad[1:]
+        summed = iter(flat_all_reduce([g for g, n in zip(grads, need) if n],
+                                      "sum", ctx.group))
+        return (None,) + tuple(next(summed) if n else None for n in need)
 
 
 def replicate(group, *xs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-    """The identity on tensors every rank of `group` holds alike; their
-    gradients are summed over the group (one all-reduce for all of them)."""
+    """The identity on tensors every rank of `group` holds alike; the
+    gradients of those that need one are summed over the group (one
+    all-reduce for all of them)."""
     return _Replicate.apply(group, *xs)
 
 

@@ -133,10 +133,12 @@ def test_run_eval_matches_jax(slice_setup, tmp_path):
 
 def test_port_imports_no_jax():
     """Importing every module of the port, and chip_smoke.py, with jax, flax,
-    optax and the JAX package made unimportable."""
+    optax, the JAX package, msgpack and pandas made unimportable (the card
+    machine has none of them)."""
     code = (
         "import sys\n"
-        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'manigaussian_tpu'):\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'manigaussian_tpu',\n"
+        "          'msgpack', 'pandas'):\n"
         "    sys.modules[m] = None\n"
         "import importlib, pkgutil, manigaussian_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"

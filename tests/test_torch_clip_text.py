@@ -214,8 +214,15 @@ def test_rn50_provider_runs_on_the_card_unless_asked(twin, vocab, tmp_path,
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         TL.create_language_model("CLIP", checkpoint_dir=str(ckpt))
-    with pytest.raises(NotImplementedError, match="A.6"):
-        TL.ClipRN50TextModel(str(tmp_path / "clip.msgpack"), device="cpu")
+    # the port's converted .msgpack loads the same tower
+    from manigaussian_tpu_torch.tools.convert_weights import convert_clip
+    convert_clip(str(ckpt), str(tmp_path / "clip.msgpack"))
+    direct = TL.ClipRN50TextModel(str(ckpt), device="cpu").model
+    converted = TL.ClipRN50TextModel(str(tmp_path / "clip.msgpack"),
+                                     device="cpu").model
+    for (k, a), b in zip(direct.state_dict().items(),
+                         converted.state_dict().values()):
+        assert torch.equal(a, b), k
 
 
 def test_factory_routes(tmp_path, monkeypatch):

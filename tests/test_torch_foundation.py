@@ -142,10 +142,12 @@ def test_create_feature_extractor_routes(tmp_path, monkeypatch):
     # raises (tests/test_torch_parallel_dinov2_dir.py loads real ones)
     with pytest.raises(FileNotFoundError):
         TF.create_feature_extractor("dinov2", str(tmp_path), device="cpu")
-    # a converted .msgpack needs flax (ROADMAP A.6)
+    # a converted .msgpack goes to the port's reader of flax's format (an
+    # empty file is truncated; tests/test_torch_convert_weights.py loads
+    # real ones)
     msgpack = tmp_path / "sd_vae.msgpack"
     msgpack.write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="A.6"):
+    with pytest.raises(ValueError, match="truncated msgpack"):
         TF.create_feature_extractor("diffusion", str(msgpack), device="cpu")
     # random-init builds the SD VAE at SD v1 width, from seed 0
     monkeypatch.setattr(TF, "FEATURE_HW", 64)
