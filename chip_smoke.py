@@ -188,6 +188,27 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
  25. extras      — `knn_mean_sq_dist` at 16,384 points, `attention3d` and
                    `ssim`, card against CPU; `capture_trace` around one card
                    training step.
+ 26. campaign    — `python -m manigaussian_tpu_torch.scripts.flagship_campaign
+                   --variant w_geo` through its main() at full `w_geo`
+                   width and the campaign's data shapes (128², 21 nerf
+                   views, 20-step episodes, 3 tasks), cut in depth only (2
+                   demos a task, 60 iterations, log / save / render every
+                   10 / 30 / 30): demo generation, the feed rate, training
+                   (the flash and blend pairs), the artifact; no non-finite
+                   cell, the JAX summary's keys, the last checkpoint
+                   restored, the feed below the step.
+ 27. artifact    — `make_results_artifact.run` as the JAX miniature runs it
+                   (1 seed, 2 tasks, 40 iterations, save every 20, 1
+                   episode, 2 workers) on the card: the micro config's
+                   training (the fp32 flash pair, 8-wide heads, and the
+                   blend pair), two spawned eval workers on the card, the
+                   reference CSV format.
+ 28. tools       — `gen_demonstrations` (one 128² episode),
+                   `diagnose_learning` (40 micro iterations; training, then
+                   the flash forward of every act) and `make_goldens` on the
+                   card (its oracle, ops/rasterizer_ref.py) against
+                   tests/goldens/*.npz, with the kernel route on the
+                   regenerated scenes against them.
 Every training slice also holds the recon render at step 0
 (`render_for_vis`: the policy's forward, and one blend forward with the
 splat renderer) to its launches.
@@ -4036,6 +4057,328 @@ def phase_extras() -> dict:
     return {}
 
 
+# The user scripts' phases (manigaussian_tpu_torch/scripts/): the campaign
+# cut in depth only, and the JAX summary's keys it must write
+CAMPAIGN_ITERS = 60
+CAMPAIGN_DEMOS = 2
+CAMPAIGN_OVERRIDES = ("framework.log_freq=10", "framework.save_freq=30",
+                      "method.neural_renderer.render_freq=30")
+JAX_CAMPAIGN_SUMMARY = os.path.join(ROOT, "results", "flagship_campaign",
+                                    "w_geo", "summary.json")
+
+
+def run_counted(counters: dict, fn, *args, **kwargs):
+    """fn(*args, **kwargs) with the counts set to 0 just before and read just
+    after, and the agent's act calls counted: (result, launches, act calls,
+    seconds)."""
+    import torch
+    from manigaussian_tpu_torch.agents.bc_agent import ManiGaussianBCAgent
+    calls, orig = [0], ManiGaussianBCAgent.act
+
+    def counted(self, observation):
+        calls[0] += 1
+        return orig(self, observation)
+
+    ManiGaussianBCAgent.act = counted
+    try:
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.time()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+        launches = {k: c.launches for k, c in counters.items()}
+    finally:
+        ManiGaussianBCAgent.act = orig
+    return out, launches, calls[0], seconds
+
+
+def training_launches(m, iters: int, act_calls: int = 0) -> dict:
+    """A training run's launches from step 0: every step's, the recon
+    render's at every `render_freq`-th step, and `act_calls` acts (the
+    flash forward `transformer_depth` times each, with the conv kernels 2
+    conv forwards)."""
+    render_freq = m.neural_renderer.render_freq
+    renders = len(range(0, iters, render_freq)) if render_freq else 0
+    out = {k: sum(expected_launches(m, i)[k] for i in range(iters))
+           + renders * v for k, v in expected_vis_launches(m).items()}
+    out["flash_self_attention_fwd"] += act_calls * m.transformer_depth
+    if m.policy_conv_impl == "pallas":
+        out["conv3d_fwd"] += 2 * act_calls
+    return out
+
+
+def phase_campaign(counters: dict) -> dict:
+    """`python -m manigaussian_tpu_torch.scripts.flagship_campaign --variant
+    w_geo` through its main(), at `config.w_geo()`'s full width and the
+    campaign's data shapes (128² camera, 21 nerf views, 20 steps an
+    episode, 3 tasks), cut in depth only: CAMPAIGN_DEMOS demos a task,
+    CAMPAIGN_ITERS iterations, log / save / render every 10 / 30 / 30
+    steps. The counts are set to 0 just before and read just after (the
+    steps and the recon renders: the flash pair and the blend pair). Checks:
+    no non-finite cell, the JAX artifact's summary keys (feed's too), the
+    last checkpoint restored into a new agent with finite parameters and
+    LAMB's state, the feed's ms a batch below the step's median, the first
+    and last recon panels written."""
+    import torch
+    from manigaussian_tpu_torch.agents.registry import create_agent
+    from manigaussian_tpu_torch.scripts import flagship_campaign as fc
+    from manigaussian_tpu_torch.utils.checkpoint import restore_checkpoint
+
+    work, out = os.path.join(WORK, "campaign"), os.path.join(WORK,
+                                                             "campaign_out")
+    argv = ["--variant", "w_geo", "--iters", str(CAMPAIGN_ITERS), "--demos",
+            str(CAMPAIGN_DEMOS), "--work", work, "--out", out,
+            *CAMPAIGN_OVERRIDES]
+    summary, launches, acts, seconds = run_counted(counters, fc.main, argv)
+    cfg = fc.build_cfg("w_geo", CAMPAIGN_ITERS, work=work,
+                       overrides=CAMPAIGN_OVERRIDES, demos=CAMPAIGN_DEMOS)
+    m = cfg.method
+    expect = training_launches(m, CAMPAIGN_ITERS)
+    with open(JAX_CAMPAIGN_SUMMARY) as f:
+        jax_summary = json.load(f)
+    logdir = os.path.join(work, "logs", "w_geo", "seed0")
+    agent = create_agent(cfg, device="cuda")
+    _, step = restore_checkpoint(logdir, agent.qfn,
+                                 optimizer=agent.optimizer())
+    params_finite = all(bool(torch.isfinite(p).all())
+                        for p in agent.qfn.parameters())
+    del agent
+    step_ms = 1e3 / summary["steps_per_s_median"]
+    art = os.path.join(out, "w_geo")
+    panels = sorted(f for f in os.listdir(art) if f.endswith(".png"))
+    ok = (summary["nonfinite_cells"] == 0
+          and sorted(summary) == sorted(jax_summary)
+          and sorted(summary["feed"]) == sorted(jax_summary["feed"])
+          # the JAX summary's `iterations`: the last logged step + 1
+          and summary["iterations"] == (CAMPAIGN_ITERS - 1) // 10 * 10 + 1
+          and summary["logged_rows"] == len(range(0, CAMPAIGN_ITERS, 10))
+          and step == CAMPAIGN_ITERS - 1 and params_finite
+          and summary["feed"]["ms_per_batch"] < step_ms
+          and panels == ["0.png", "30.png"]
+          and launches == expect and acts == 0
+          and sorted(os.listdir(art)) == sorted(
+              ["config.json", "summary.json", "train.csv", *panels]))
+    log("campaign", config="w_geo", voxel=m.voxel_sizes[0],
+        latents=[m.num_latents, m.latent_dim], depth=m.transformer_depth,
+        dtype=m.policy_dtype, image=[fc.H, fc.W], nerf_views=fc.NERF_VIEWS,
+        timesteps=fc.TIMESTEPS, tasks=fc.TASKS,
+        reduced={"demos_per_task": [CAMPAIGN_DEMOS, fc.DEMOS],
+                 "iterations": [CAMPAIGN_ITERS, 10010],
+                 "log_freq": [10, 50], "save_freq": [30, 2500],
+                 "render_freq": [30, 1000]},
+        summary=summary, step_ms_median=step_ms,
+        feed_below_step=summary["feed"]["ms_per_batch"] < step_ms,
+        launches=launches, expected=expect, restored_step=step,
+        params_finite=params_finite, panels=panels, seconds=seconds, ok=ok)
+    if not ok:
+        raise AssertionError("the flagship campaign failed its checks")
+    return {"launches": launches, "summary": summary}
+
+
+def phase_artifact(counters: dict) -> dict:
+    """`make_results_artifact.run` as the JAX package's own miniature runs
+    it (tests/test_results_artifact.py: 1 seed, 2 tasks, 40 iterations,
+    `save_freq` 20, 1 held-out episode, 2 workers), on the card: the
+    micro config's training in this process (the counts set to 0 just
+    before and read just after: the fp32 flash pair, 8-wide heads, and the
+    blend pair), the two checkpoints' evals in two spawned workers on the
+    card, each counting its acts and launches (the flash forward an act).
+    The per-seed CSV passes the reference format check
+    (tests/test_results_artifact.py `_assert_reference_format`, in numpy);
+    the summary is finite and best ≥ last."""
+    import csv as csv_mod
+    import multiprocessing
+    import numpy as np
+    import torch
+    from manigaussian_tpu_torch.analysis.compute_results import (
+        calculate_average_return, category_table, read_csv)
+    from manigaussian_tpu_torch.config import micro_variant
+    from manigaussian_tpu_torch.scripts import make_results_artifact as ra
+
+    tasks = ("open_drawer", "turn_tap")
+    out = os.path.join(WORK, "artifact")
+    shutil.rmtree(os.path.join(WORK, "eval_workers"), ignore_errors=True)
+    ctx = multiprocessing.get_context("spawn")
+    pool = ctx.Pool
+    ctx.Pool = lambda n: _CountedPool(pool(n))
+    try:
+        summary, launches, acts, seconds = run_counted(
+            counters, ra.run, out, seeds=1, tasks=tasks, iterations=40,
+            save_freq=20, episodes=1, workers=2,
+            work_dir=os.path.join(WORK, "artifact_work"), device="cuda")
+    finally:
+        del ctx.Pool
+    m = micro_variant("w_geo", tasks, 40, 20).method
+    expect = training_launches(m, 40)
+    workers = {}
+    for step in (20, 39):
+        with open(os.path.join(WORK, "eval_workers", f"{step}.json")) as f:
+            workers[step] = json.load(f)
+    card = torch.cuda.get_device_name(0)
+    workers_ok = all(
+        w["device"] == "cuda" and w["card"] == card and w["act_calls"] > 0
+        and w["launches"] == {k: 0 for k in counters} | {
+            "flash_self_attention_fwd": m.transformer_depth * w["act_calls"]}
+        for w in workers.values())
+    table = read_csv(os.path.join(out, "0.csv"))
+    with open(os.path.join(out, "0.csv")) as f:
+        header = next(csv_mod.reader(f))
+    ret_cols = [c for c in header if "return" in c and "mean_return" not in c]
+    avg = calculate_average_return(table)
+    format_ok = ("step" in header and len(table["step"]) >= 2
+                 and all(f"eval_envs/{k}/{t}" in header for t in tasks
+                         for k in ("return", "length", "total_transitions"))
+                 and np.isclose(avg[0], np.mean([table[c][0]
+                                                 for c in ret_cols]))
+                 and "step" in category_table(table))
+    ok = (format_ok and workers_ok and launches == expect and acts == 0
+          and m.policy_dtype == "float32" and m.latent_dim_head == 8
+          and np.isfinite(summary["last"]["mean"])
+          and np.isfinite(summary["best"]["mean"])
+          and summary["best"]["mean"] >= summary["last"]["mean"] - 1e-9
+          and sorted(os.listdir(out)) == ["0.csv", "config.json",
+                                          "summary.json", "train_0.csv"])
+    log("artifact", config="micro_variant(w_geo)", tasks=list(tasks),
+        seeds=1, iterations=40, save_freq=20, episodes=1, workers=2,
+        dtype=m.policy_dtype, heads=[m.latent_heads, m.latent_dim_head],
+        latents=[m.num_latents, m.latent_dim], header=header,
+        summary=summary, launches=launches, expected=expect,
+        eval_workers=workers, format_ok=format_ok, seconds=seconds, ok=ok)
+    if not ok:
+        raise AssertionError("the results artifact failed its checks")
+    return {"launches": launches,
+            "worker_launches": {k: sum(w["launches"][k]
+                                       for w in workers.values())
+                                for k in counters}}
+
+
+def phase_tools(counters: dict) -> dict:
+    """The other user scripts on the card: `gen_demonstrations` (one 128²
+    episode, loaded back), `diagnose_learning` (40 micro iterations,
+    `save_freq` 20, 1 episode; the counts set to 0 just before and read
+    just after: the training's flash and blend pairs, then the flash
+    forward of every act of the keyframe accuracy and the rollouts), and
+    `make_goldens` (its oracle is `ops/rasterizer_ref.py`, the untiled
+    per-pixel copy of the JAX oracle; no kernel launches): the regenerated
+    fixtures against tests/goldens/*.npz on every element (loss rtol 1e-5,
+    radii exact, frames atol 1e-5 rtol 1e-4, gradients rtol 1e-4 with atol
+    1e-5 of the array's largest magnitude, as in
+    tests/test_torch_scripts_goldens.py), and the kernel route's frames and
+    gradients on the regenerated scenes against them under the golden
+    tests' rule for a second implementation."""
+    import numpy as np
+    import torch
+    from manigaussian_tpu_torch.config import micro_w_geo
+    from manigaussian_tpu_torch.data.episode import (list_episodes,
+                                                     load_episode,
+                                                     load_image)
+    from manigaussian_tpu_torch.ops.camera import novel_camera_calib
+    from manigaussian_tpu_torch.ops.rasterizer import (RasterizeConfig,
+                                                       rasterize)
+    from manigaussian_tpu_torch.scripts import diagnose_learning as dl
+    from manigaussian_tpu_torch.scripts import gen_demonstrations as gd
+    from manigaussian_tpu_torch.scripts import make_goldens as mg
+
+    t0 = time.time()
+    demos = os.path.join(WORK, "tools_demos")
+    gd.main(["--tasks", "open_drawer", "--save_path", demos,
+             "--episodes_per_task", "1", "--image_size", "128",
+             "--nerf_views", "3", "--timesteps", "12"])
+    eps = list_episodes(demos, "open_drawer")
+    ep = load_episode(eps[0])
+    gen_ok = (len(eps) == 1 and len(ep) == 12
+              and load_image(ep.rgb_paths["front"][0]).shape == (128, 128, 3)
+              and len(ep.nerf_rgb_paths[0]) == 3)
+    gen_s = time.time() - t0
+
+    report, launches, acts, diag_s = run_counted(
+        counters, dl.main, ["--iterations", "40", "--save-freq", "20",
+                            "--episodes", "1",
+                            "--work", os.path.join(WORK, "diag")])
+    m = micro_w_geo(("open_drawer",), 40, 20).method
+    expect = training_launches(m, 40, acts)
+    diag_ok = ([r["step"] for r in report] == [20, 39] and launches == expect
+               and all(np.isfinite(v) for r in report for v in r.values())
+               and all(r["n"] > 0 for r in report))
+
+    out = os.path.join(WORK, "goldens")
+    golden, g_launches, _, golden_s = run_counted(counters, mg.main,
+                                                  ["--out", out])
+    rule = {"frames": (1e-4, 1e-3, 0.005), "grads": (2e-4, 1e-3, 0.02)}
+    frames = ("golden_color", "golden_lang", "golden_final_t")
+
+    def all_close(a, d, atol, rtol):
+        a, d = np.asarray(a, np.float64), np.asarray(d, np.float64)
+        return (bool(np.allclose(a, d, atol=atol, rtol=rtol)),
+                float(np.abs(a - d).max()))
+
+    g_res, g_ok = {}, g_launches == {k: 0 for k in counters}
+    for name, rec in golden.items():
+        want = dict(np.load(os.path.join(ROOT, "tests", "goldens",
+                                         name + ".npz")))
+        res = {"loss_rel": abs(float(rec["loss"]) - float(want["loss"]))
+               / abs(float(want["loss"])),
+               "radii_equal": bool(np.array_equal(rec["golden_radii"],
+                                                  want["golden_radii"]))}
+        for k in frames:
+            res[k] = all_close(rec[k], want[k], 1e-5, 1e-4)
+        for k in mg.PARAM_KEYS:
+            g = want[f"grad_{k}"]
+            res[f"grad_{k}"] = all_close(rec[f"grad_{k}"], g,
+                                         1e-5 * np.abs(g).max(), 1e-4)
+        # the kernel route on the regenerated scene, against the regenerated
+        h, w = int(rec["height"]), int(rec["width"])
+        n = rec["means3d"].shape[0]
+        t = lambda a: torch.tensor(np.asarray(a), device="cuda")
+        cam = novel_camera_calib(t(rec["intrinsic"]), t(rec["c2w"]),
+                                 float(rec["znear"]), float(rec["zfar"]), h, w)
+        cfg = RasterizeConfig(width=w, height=h, tile=16,
+                              max_tiles_per_gaussian=(h // 16) * (w // 16),
+                              tile_capacity=max(256, ((n + 127) // 128) * 128),
+                              chunk=128, sh_degree=1, backend="pallas")
+        wc, wl, wt = (t(x) for x in mg.loss_weights(h, w))
+        p = {k: t(rec[k]).requires_grad_() for k in mg.PARAM_KEYS}
+        before = {k: c.launches for k, c in counters.items()}
+        kout, _ = rasterize(p["means3d"], p["opacities"], cam, cfg,
+                            (0.0, 0.0, 0.0), p["scales"], p["rotations"],
+                            p["shs"], p["language_features"])
+        (torch.sum(kout.color.reshape(-1, 3) * wc)
+         + torch.sum(kout.language_feature.reshape(-1, 3) * wl)
+         + torch.sum(kout.final_t.reshape(-1) * wt)).backward()
+        torch.cuda.synchronize()
+        k_launch = {k: c.launches - before[k] for k, c in counters.items()}
+        for k, f in zip(frames, ("color", "language_feature", "final_t")):
+            res[f"kernel_{k}"] = mostly_close(
+                getattr(kout, f).detach().cpu(), rec[k], *rule["frames"])
+        for k in mg.PARAM_KEYS:
+            res[f"kernel_grad_{k}"] = mostly_close(
+                p[k].grad.cpu(), rec[f"grad_{k}"], *rule["grads"])
+        g_ok = (g_ok and res["loss_rel"] <= 1e-5 and res["radii_equal"]
+                and all(v[0] for v in res.values() if isinstance(v, tuple))
+                and k_launch["blend_fwd"] == 1 and k_launch["blend_bwd"] == 1)
+        g_res[name] = res
+    ok = gen_ok and diag_ok and g_ok
+    log("tools", gen_demonstrations={"episodes": len(eps), "steps": len(ep),
+                                     "seconds": gen_s, "ok": gen_ok},
+        diagnose_learning={"report": report, "act_calls": acts,
+                           "launches": launches, "expected": expect,
+                           "seconds": diag_s, "ok": diag_ok},
+        make_goldens={"oracle": "ops/rasterizer_ref.py",
+                      "launches": g_launches, "results": g_res,
+                      "rule": "against tests/goldens, every element: loss "
+                              "rtol 1e-5, radii exact, frames atol 1e-5 "
+                              "rtol 1e-4, grads rtol 1e-4 atol 1e-5 x max; "
+                              "kernel route against the regenerated: frames "
+                              "atol 1e-4 rtol 1e-3 <=0.5 % outside, grads "
+                              "atol 2e-4 rtol 1e-3 <=2 % outside",
+                      "seconds": golden_s, "ok": g_ok},
+        seconds=time.time() - t0, ok=ok)
+    if not ok:
+        raise AssertionError("the user tools failed their checks")
+    return {"launches": launches}
+
+
 def main(argv) -> int:
     if argv not in ([], ["--flash-times"], ["--blend-times"], ["--embed-ab"],
                     ["--conv-times"], ["--gnf-steps"], ["--step-times"]):
@@ -4159,6 +4502,9 @@ def main(argv) -> int:
     it = phase_imported_train(counters, tr)
     sc = phase_scaling(counters)
     phase_extras()
+    cp = phase_campaign(counters)
+    ar = phase_artifact(counters)
+    tl_ = phase_tools(counters)
     # launches on the main paths, each read just after its run: the full
     # model's training run (`launches`: w_geo_sem_dyna, the one path that
     # launches every kernel of the paths), and every path by name, the bench
@@ -4183,7 +4529,11 @@ def main(argv) -> int:
              "train_w_geo_adam": ad["launches"],
              "train_w_geo_native_replay": dk["launches"],
              "render_two_level": tl["launches"],
-             "train_w_geo_imported": it["launches"], **sc["launches"]}
+             "train_w_geo_imported": it["launches"], **sc["launches"],
+             "campaign_w_geo": cp["launches"],
+             "artifact_micro": ar["launches"],
+             "artifact_micro_eval_workers2": ar["worker_launches"],
+             "diagnose_micro": tl_["launches"]}
     # every kernel of a dp_slice run's path (the flash and blend pairs) was
     # launched there (phase_dp_slice also holds each rank to its count)
     for run, c in dp["launches"].items():

@@ -20,11 +20,12 @@ A local Hugging Face DINOv2 directory (`config.json`,
 without `transformers` (`DinoV2DirExtractor`, the JAX package's
 `DINOv2FeatureExtractor`): the weights are renamed to the torch-hub names
 (`hub_from_hf`), safetensors files are read and written here
-(`read_safetensors`, `write_safetensors`), and the image processor's steps
-are copied (`HFImageProcessor`): each image quantized to uint8 and resized
-by PIL as `transformers` does, centre-cropped, ImageNet-normalized in
-float32 on the host; the position embeddings are resized bicubically, as
-the HF model does.
+(`read_safetensors`, `write_safetensors`; `read_hf_weights` picks a
+directory's weights file, also for `tools/convert_weights t5`), and the
+image processor's steps are copied (`HFImageProcessor`): each image
+quantized to uint8 and resized by PIL as `transformers` does,
+centre-cropped, ImageNet-normalized in float32 on the host; the position
+embeddings are resized bicubically, as the HF model does.
 """
 
 from __future__ import annotations
@@ -306,6 +307,19 @@ def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
     return out
 
 
+def read_hf_weights(path: str) -> Dict[str, torch.Tensor]:
+    """A Hugging Face directory's torch weights, in transformers' order of
+    preference: model.safetensors (read here), then pytorch_model.bin."""
+    st = os.path.join(path, "model.safetensors")
+    if os.path.isfile(st):
+        return read_safetensors(st)
+    pt = os.path.join(path, "pytorch_model.bin")
+    if os.path.isfile(pt):
+        return torch.load(pt, map_location="cpu", weights_only=True)
+    raise FileNotFoundError(
+        f"no model.safetensors or pytorch_model.bin in {path}")
+
+
 def write_safetensors(path: str, tensors: Mapping[str, torch.Tensor]) -> None:
     """The inverse of `read_safetensors` (names in sorted order, the header
     padded with spaces to a multiple of 8 bytes)."""
@@ -501,10 +515,7 @@ def load_hf_dir(path: str) -> Tuple[DinoV2ViT, HFImageProcessor]:
         cfg = json.load(f)
     with open(os.path.join(path, "preprocessor_config.json")) as f:
         proc = json.load(f)
-    st = os.path.join(path, "model.safetensors")
-    sd = (read_safetensors(st) if os.path.isfile(st) else
-          torch.load(os.path.join(path, "pytorch_model.bin"),
-                     map_location="cpu", weights_only=True))
+    sd = read_hf_weights(path)
     layers, width = int(cfg["num_hidden_layers"]), int(cfg["hidden_size"])
     hub = hub_from_hf(sd, layers)
     model = DinoV2ViT(

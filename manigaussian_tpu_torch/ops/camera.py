@@ -67,7 +67,7 @@ def projection_from_intrinsics(k: torch.Tensor, znear: float, zfar: float,
     right = cx * near_fx
     bottom = (cy - h) * near_fy
     top = cy * near_fy
-    p = torch.zeros(k.shape[:-2] + (4, 4), dtype=torch.float32, device=k.device)
+    p = torch.zeros(k.shape[:-2] + (4, 4), dtype=k.dtype, device=k.device)
     p[..., 0, 0] = 2.0 * znear / (right - left)
     p[..., 1, 1] = 2.0 * znear / (top - bottom)
     p[..., 0, 2] = (right + left) / (right - left)

@@ -3,23 +3,33 @@
 
 The three pretrained towers, each written as the payload the JAX tool
 writes ({"tower", "dims", "variables"}, the variables in flax layout), so a
-file from either package loads in both:
+file from either package loads in both, and the T5 encoder's directory:
 
   CLIP RN50 text  — OpenAI `RN50.pt` (torch.jit archive or state dict)
   DINOv2 ViT      — torch-hub `dinov2_vit*.pth` state dict
   SD VAE          — CompVis checkpoint (`first_stage_model.*`)
+  T5 encoder      — a Hugging Face T5 directory (torch weights) → the
+                    directory `FlaxT5EncoderModel.save_pretrained` writes
 
 Usage:
     python -m manigaussian_tpu_torch.tools.convert_weights clip   RN50.pt  clip_text.msgpack
     python -m manigaussian_tpu_torch.tools.convert_weights dinov2 vitl14.pth dinov2.msgpack
     python -m manigaussian_tpu_torch.tools.convert_weights sd_vae sd-v1-4.ckpt sd_vae.msgpack
+    python -m manigaussian_tpu_torch.tools.convert_weights t5     /ckpts/t5-base t5_flax/
 
 `method.language_model_checkpoint` and
-`method.neural_renderer.foundation_checkpoint` accept the outputs
-(`load_converted`). The JAX tool's `t5` writes a flax `transformers`
-directory, which only `transformers` with flax can read; the port's T5
-provider reads the torch directory that tool takes as its input, so `t5`
-here raises and says so.
+`method.neural_renderer.foundation_checkpoint` accept the tower outputs
+(`load_converted`). `t5` needs no `transformers`: it reads the torch weights
+(`model.safetensors`, else `pytorch_model.bin`, not a sharded checkpoint,
+through `models/dinov2.read_hf_weights`), renames them as
+transformers' torch→flax conversion does (a linear `weight` becomes
+`kernel` = weightᵀ, `shared` and `relative_attention_bias` become
+`embedding`, the layer norms keep `weight`; `encoder.embed_tokens`, tied to
+`shared`, and any decoder or head weights are left out, as the flax encoder
+model leaves them), and writes `flax_model.msgpack` with the codec below,
+the input's `config.json` with `architectures` set to the encoder model's,
+and the input's tokenizer files copied. The port's T5 language provider
+reads the torch directory itself, as the JAX package's does.
 
 The format is flax's `msgpack_serialize` / `msgpack_restore`, read and
 written here in pure Python (no `msgpack`, no `flax`): msgpack's nil, bool,
@@ -184,11 +194,12 @@ def _chunk_leaves(tree):
     return tree
 
 
-def msgpack_serialize(tree) -> bytes:
+def msgpack_serialize(tree, sort_keys: bool = True) -> bytes:
     """flax's `msgpack_serialize` of a tree of dicts, lists and leaves
-    (arrays, numpy scalars, Python scalars, str, bytes): dict keys sorted,
-    oversized arrays chunked. A tuple raises, as in flax."""
-    return packb(_chunk_leaves(tree), sort_keys=True)
+    (arrays, numpy scalars, Python scalars, str, bytes), oversized arrays
+    chunked; dict keys sorted (a tree `jax.tree_util` rebuilt) or, with
+    `sort_keys=False`, in insertion order. A tuple raises, as in flax."""
+    return packb(_chunk_leaves(tree), sort_keys=sort_keys)
 
 
 # ------------------------------------------------------------- the reader
@@ -366,12 +377,56 @@ def convert_sd_vae(in_path: str, out_path: str) -> Dict[str, Any]:
                   sd_vae_variables(sd))
 
 
+T5_TOKENIZER_FILES = ("tokenizer.json", "tokenizer_config.json",
+                      "special_tokens_map.json", "spiece.model",
+                      "added_tokens.json")
+
+
+def t5_encoder_variables(sd: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """A torch T5 state dict → the params tree of FlaxT5EncoderModel, as
+    transformers' `convert_pytorch_state_dict_to_flax` makes it."""
+    if "shared.weight" not in sd:
+        raise KeyError("the T5 checkpoint has no shared.weight")
+    tree: Dict[str, Any] = {}
+    for key, w in sd.items():
+        parts = key.split(".")
+        if parts[0] not in ("shared", "encoder") or key == \
+                "encoder.embed_tokens.weight" or parts[-1] != "weight":
+            continue
+        if parts[0] == "shared" or parts[-2] == "relative_attention_bias":
+            parts[-1] = "embedding"
+        elif not parts[-2].endswith("layer_norm"):
+            parts[-1], w = "kernel", w.t()
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = w.detach().contiguous()
+    return tree
+
+
 def convert_t5(in_dir: str, out_dir: str) -> str:
-    raise NotImplementedError(
-        "the JAX tool's t5 writes a flax transformers directory, which only "
-        "transformers with flax reads; the port's T5 provider "
-        "(method.language_model=T5) reads the torch checkpoint directory "
-        f"{in_dir!r} itself: point language_model_checkpoint at it")
+    """HF torch T5 dir → the flax T5 encoder dir (flax_model.msgpack,
+    config.json, the tokenizer files copied alongside)."""
+    import json
+    import os
+    import shutil
+
+    from manigaussian_tpu_torch.models.dinov2 import read_hf_weights
+    os.makedirs(out_dir, exist_ok=True)
+    tree = t5_encoder_variables(read_hf_weights(in_dir))
+    with open(os.path.join(out_dir, "flax_model.msgpack"), "wb") as f:
+        # transformers keeps the torch state dict's order
+        f.write(msgpack_serialize(tree, sort_keys=False))
+    with open(os.path.join(in_dir, "config.json")) as f:
+        config = json.load(f)
+    config["architectures"] = ["T5EncoderModel"]
+    with open(os.path.join(out_dir, "config.json"), "w") as f:
+        f.write(json.dumps(config, indent=2, sort_keys=True) + "\n")
+    for name in T5_TOKENIZER_FILES:
+        if os.path.isfile(os.path.join(in_dir, name)):
+            shutil.copyfile(os.path.join(in_dir, name),
+                            os.path.join(out_dir, name))
+    return out_dir
 
 
 def main(argv=None):
@@ -396,6 +451,7 @@ def main(argv=None):
               f"-> {args.output}")
     else:
         convert_t5(args.input, args.output)
+        print(f"[convert] t5 encoder -> {args.output}")
 
 
 if __name__ == "__main__":

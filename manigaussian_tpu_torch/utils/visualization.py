@@ -1,4 +1,4 @@
-"""Training-time reconstruction panels (a copy of
+"""Training-time reconstruction panels (the counterpart of
 `manigaussian_tpu/utils/visualization.py`; reference
 `qattention_manigaussian_bc_agent.py:921-1010`).
 
@@ -6,7 +6,8 @@ Every `render_freq` steps the training runner renders the first target view
 in inference mode and writes one figure, <logdir>/recon/<step>.png: input
 RGB, ground-truth view, predicted view, predicted and ground-truth embedding
 (each normalized to [0, 1]) and the next frame's prediction and ground
-truth, whichever are given. Host-side matplotlib, imported at the call.
+truth, whichever are given, side by side at the first image's height, each
+under its title. Host-side Pillow, imported at the call.
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ import os
 from typing import Optional
 
 import numpy as np
+
+_TITLE_H = 12
 
 
 def _norm01(img: np.ndarray) -> np.ndarray:
@@ -34,31 +37,35 @@ def save_recon_panel(logdir: str, step: int,
                      next_pred_rgb: Optional[np.ndarray] = None,
                      next_gt_rgb: Optional[np.ndarray] = None) -> str:
     """Write the panel figure of the given images; returns the file path."""
-    import matplotlib
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
+    from PIL import Image, ImageDraw
 
     panels = [("input", input_rgb), ("gt", gt_rgb), ("pred", pred_rgb),
               ("embed", pred_embed), ("gt_embed", gt_embed),
               ("next_pred", next_pred_rgb), ("next_gt", next_gt_rgb)]
     panels = [(t, p) for t, p in panels if p is not None]
-    fig, axes = plt.subplots(1, max(1, len(panels)),
-                             figsize=(3 * max(1, len(panels)), 3))
-    if len(panels) == 1:
-        axes = [axes]
-    for ax, (title, img) in zip(axes, panels):
-        img = np.asarray(img)
+    out_dir = os.path.join(logdir, "recon")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, f"{step}.png")
+
+    tiles = []
+    for title, img in panels:
+        img = np.asarray(img, np.float32)
         if img.ndim == 4:
             img = img[0]
         if title in ("embed", "gt_embed"):
             img = _norm01(img)
-        ax.imshow(np.clip(img, 0, 1))
-        ax.set_title(title)
-        ax.axis("off")
-    out_dir = os.path.join(logdir, "recon")
-    os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(out_dir, f"{step}.png")
-    fig.tight_layout()
-    fig.savefig(path, dpi=80)
-    plt.close(fig)
+        tiles.append(Image.fromarray(
+            (np.clip(img[..., :3], 0, 1) * 255).round().astype(np.uint8)))
+    h = tiles[0].height if tiles else 1
+    tiles = [t if t.height == h else t.resize((t.width * h // t.height, h))
+             for t in tiles]
+    fig = Image.new("RGB", (max(1, sum(t.width for t in tiles)),
+                            h + _TITLE_H), "white")
+    draw = ImageDraw.Draw(fig)
+    x = 0
+    for (title, _), t in zip(panels, tiles):
+        draw.text((x + 1, 0), title, fill="black")
+        fig.paste(t, (x, _TITLE_H))
+        x += t.width
+    fig.save(path)
     return path

@@ -193,8 +193,13 @@ def test_no_msgpack_flax_or_jax_needed(files):
 
 
 def test_cli_and_t5(files, tmp_path, capsys):
+    from tests.test_torch_scripts_t5 import tiny_t5_dir
     ckpt = files["dinov2"][0]
     TW.main(["dinov2", ckpt, str(tmp_path / "d.msgpack")])
     assert "[convert] dinov2 tower dims=" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="torch checkpoint"):
-        TW.main(["t5", str(tmp_path), str(tmp_path / "t5")])
+    src = tiny_t5_dir(str(tmp_path / "t5_in"))
+    TW.main(["t5", src, str(tmp_path / "t5")])
+    assert "[convert] t5 encoder ->" in capsys.readouterr().out
+    assert sorted(os.listdir(tmp_path / "t5")) == [
+        "config.json", "flax_model.msgpack", "special_tokens_map.json",
+        "tokenizer.json", "tokenizer_config.json"]

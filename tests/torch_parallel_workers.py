@@ -138,15 +138,23 @@ def train_cfg(cfg_dict):
 
 def one_process_update(cfg, batches, seed: int = 3, draws=None):
     """The port's one-process update on the global batches: (metrics by
-    step, gradients and parameters after the last step)."""
+    step, gradients and parameters after the last step). It runs at the
+    ranks' thread count, whatever the caller's: the reductions' order
+    follows the thread count, and LAMB carries that difference from step 0
+    into step 1's losses beyond the tests' 1e-5."""
     from manigaussian_tpu_torch.agents.registry import create_agent
-    agent = create_agent(cfg, device="cpu", seed=seed)
-    gen = torch.Generator().manual_seed(0)
-    metrics = []
-    for i, b in enumerate(batches):
-        m = agent.update(b, gen, None if draws is None else draws[i])
-        metrics.append({k: float(v) for k, v in m.items()})
-    return metrics, _grads(agent), _params(agent)
+    caller_threads = torch.get_num_threads()
+    torch.set_num_threads(THREADS)
+    try:
+        agent = create_agent(cfg, device="cpu", seed=seed)
+        gen = torch.Generator().manual_seed(0)
+        metrics = []
+        for i, b in enumerate(batches):
+            m = agent.update(b, gen, None if draws is None else draws[i])
+            metrics.append({k: float(v) for k, v in m.items()})
+        return metrics, _grads(agent), _params(agent)
+    finally:
+        torch.set_num_threads(caller_threads)
 
 
 def _grads(agent):

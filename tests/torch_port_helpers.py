@@ -55,3 +55,20 @@ def assert_close(actual, expected, tol, err_msg=""):
     np.testing.assert_allclose(to_np(actual), to_np(expected), atol=tol,
                                rtol=tol, err_msg=err_msg)
 
+
+def jax_script(name: str):
+    """The JAX package's user script `scripts/<name>.py`, loaded as a module
+    of its own name (each puts the repository root on sys.path itself)."""
+    import importlib.util
+    import os
+    import sys
+    if name in sys.modules:
+        return sys.modules[name]
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "scripts", name + ".py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
