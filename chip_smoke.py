@@ -38,9 +38,12 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                    once, waves), with ptxas's registers and spill of the
                    three wgmma kernels.
                    Then time each kernel (the flash forward without and with
-                   dropout, SDPA beside each at the same dropout rate), its
-                   plain version and the PyTorch call that computes the same
-                   function (a yardstick only; the port never calls it); the
+                   dropout, SDPA beside each at the same dropout rate,
+                   unpinned and pinned to each of its backends, 3 rounds in
+                   alternation; the fastest backend is the library time),
+                   its plain version and the PyTorch call that computes the
+                   same function (a yardstick only; the port never calls
+                   it); the
                    flash kernels, SDPA and the blend kernels on the device
                    reading (the summed durations of their device work under
                    torch.profiler), the host loop's events beside it;
@@ -539,17 +542,41 @@ def flash_offset_check() -> dict:
     return out
 
 
-def flash_times() -> dict:
+# SDPA's backends, each timed pinned (`sdpa_kernel([backend])`) beside the
+# unpinned call, whose kernel names say which one the default picks
+SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION")
+SDPA_CALLS = ("sdpa_fwd_0", "sdpa_fwd_0.1", "sdpa_bwd_0.1")
+
+
+def sdpa_backend_of(kernels: dict) -> str:
+    """The SDPA backend whose kernels a call launched, from their names."""
+    names = " ".join(kernels).lower()
+    for word, backend in (("cudnn", "CUDNN_ATTENTION"),
+                          ("flash", "FLASH_ATTENTION"),
+                          ("fmha", "EFFICIENT_ATTENTION"),
+                          ("efficient", "EFFICIENT_ATTENTION")):
+        if word in names:
+            return backend
+    return "unknown"
+
+
+def flash_times(rounds: int = 3) -> dict:
     """The flash kernels' times at the policy's shape, [1, 8, 2048, 64] bf16,
     on the device reading (`device_ms`) with the host loop's beside it,
     called as the policy calls them, through `flash_self_attention` and
     autograd: the forward without dropout (act's call, no gradient) and with
     dropout 0.1 on inputs that need the gradient (training's: the LSE and
-    the keep bits), the backward at dropout 0.1; SDPA's forward and backward
-    at the same dropout rate (a yardstick only) and the plain version, the
-    same way."""
+    the keep bits), the backward at dropout 0.1. Beside them SDPA's forward
+    at dropout 0 and 0.1 and its backward at 0.1 (a yardstick only): the
+    unpinned call, and each backend of `SDPA_BACKENDS` pinned, a backend
+    that refuses the call logged "unsupported" with the error's first line.
+    The port's kernels and SDPA run in alternation for `rounds` rounds (the
+    card slows as it heats); each entry keeps its rounds' device times and
+    their median. The plain version runs once, after the rounds."""
     import torch
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
     from manigaussian_tpu_torch.ops.flash_attention import (
         flash_self_attention, flash_self_attention_reference)
 
@@ -561,7 +588,6 @@ def flash_times() -> dict:
     qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
     out = flash_self_attention(qg, kg, vg, 0.1, sd, 256)
     ref = flash_self_attention_reference(qg, kg, vg, 0.1, 1234, 256)
-    sdpa = F.scaled_dot_product_attention(qg, kg, vg, dropout_p=0.1)
     grad = lambda y: torch.autograd.grad(y, (qg, kg, vg), g, retain_graph=True)
 
     def both(fn, plain=False):
@@ -572,25 +598,85 @@ def flash_times() -> dict:
                 "host_loop": cuda_ms(fn, iters=iters, warmup=1),
                 **({} if plain else {"kernels": kernels})}
 
-    with torch.no_grad():
-        times = {
-            "fwd_act": both(lambda: flash_self_attention(q, k, v, 0.0, sd, 256)),
-            "sdpa_fwd_0": both(lambda: F.scaled_dot_product_attention(q, k, v)),
-            "sdpa_fwd_0.1": both(lambda: F.scaled_dot_product_attention(
-                q, k, v, dropout_p=0.1)),
-            "plain_fwd_0": both(lambda: flash_self_attention_reference(
-                q, k, v, 0.0, 1234, 256), plain=True),
-            "plain_fwd_0.1": both(lambda: flash_self_attention_reference(
-                q, k, v, 0.1, 1234, 256), plain=True),
-        }
-    times.update({
-        "fwd_train": both(lambda: flash_self_attention(qg, kg, vg, 0.1, sd, 256)),
-        "bwd": both(lambda: grad(out)),
-        "sdpa_bwd_0.1": both(lambda: grad(sdpa)),
-        "plain_bwd_0.1": both(lambda: grad(ref), plain=True),
-    })
-    log("flash_times", shape=[1, 8, n, d], dtype="bfloat16", ms=times)
+    def pinned(backend, fn):
+        """`fn` under sdpa_kernel([backend]); None: unpinned"""
+        if backend is None:
+            return fn
+
+        def call():
+            with sdpa_kernel([getattr(SDPBackend, backend)]):
+                return fn()
+        return call
+
+    def first_line(e):
+        return (str(e).strip().splitlines() or [type(e).__name__])[0]
+
+    calls = {"fwd_act": lambda: flash_self_attention(q, k, v, 0.0, sd, 256),
+             "fwd_train": lambda: flash_self_attention(qg, kg, vg, 0.1, sd, 256),
+             "bwd": lambda: grad(out)}
+    unsupported = {}
+    for backend in (None,) + SDPA_BACKENDS:
+        tag = "" if backend is None else f"@{backend}"
+        calls["sdpa_fwd_0" + tag] = pinned(
+            backend, lambda: F.scaled_dot_product_attention(q, k, v))
+        calls["sdpa_fwd_0.1" + tag] = pinned(
+            backend, lambda: F.scaled_dot_product_attention(q, k, v,
+                                                            dropout_p=0.1))
+        # the backward's kernels are fixed when its graph is built
+        try:
+            y = pinned(backend, lambda: F.scaled_dot_product_attention(
+                qg, kg, vg, dropout_p=0.1))()
+        except RuntimeError as e:
+            if backend is None:
+                raise
+            unsupported["sdpa_bwd_0.1" + tag] = first_line(e)
+            continue
+        calls["sdpa_bwd_0.1" + tag] = pinned(backend, lambda y=y: grad(y))
+    readings = {}
+    for _ in range(rounds):
+        for name, fn in calls.items():
+            if name in unsupported:
+                continue
+            try:
+                readings.setdefault(name, []).append(both(fn))
+            except RuntimeError as e:
+                if "@" not in name:
+                    raise
+                unsupported[name] = first_line(e)
+                readings.pop(name, None)
+    times = {}
+    for name, rs in readings.items():
+        times[name] = {"device": statistics.median(r["device"] for r in rs),
+                       "host_loop": statistics.median(r["host_loop"] for r in rs),
+                       "rounds_device": [r["device"] for r in rs],
+                       "kernels": rs[-1]["kernels"]}
+    for c in SDPA_CALLS:
+        times[c]["backend"] = sdpa_backend_of(times[c]["kernels"])
+    for name, why in unsupported.items():
+        times[name] = {"unsupported": why}
+    times["plain_fwd_0"] = both(lambda: flash_self_attention_reference(
+        q, k, v, 0.0, 1234, 256), plain=True)
+    times["plain_fwd_0.1"] = both(lambda: flash_self_attention_reference(
+        q, k, v, 0.1, 1234, 256), plain=True)
+    times["plain_bwd_0.1"] = both(lambda: grad(ref), plain=True)
+    log("flash_times", shape=[1, 8, n, d], dtype="bfloat16", rounds=rounds,
+        ms=times)
+    log("flash_sdpa_backends", shape=[1, 8, n, d], dtype="bfloat16",
+        **{c: sdpa_summary(times, c) for c in SDPA_CALLS})
     return times
+
+
+def sdpa_summary(times: dict, call: str) -> dict:
+    """SDPA's `call` by backend: the unpinned call's backend and median
+    device ms, each pinned backend's ms or "unsupported", and the fastest."""
+    by = {"default": times[call]["device"]}
+    for backend in SDPA_BACKENDS:
+        t = times[f"{call}@{backend}"]
+        by[backend] = t.get("device", "unsupported")
+    timed = {k: v for k, v in by.items() if not isinstance(v, str)}
+    fastest = min(timed, key=timed.get)
+    return {"default_backend": times[call]["backend"], "ms": by,
+            "fastest": fastest, "fastest_ms": timed[fastest]}
 
 
 def phase_flash() -> dict:
@@ -617,14 +703,24 @@ def phase_flash() -> dict:
     source = "manigaussian_tpu_torch/csrc/flash_attention.cu"
 
     def variant(kind, lib, plain, bound_ms, bound_by, **extra):
+        """`kind`'s record; the library's time is SDPA's fastest backend's
+        (each backend's beside it)"""
         t = times[kind]
+        sdpa = sdpa_summary(times, lib)
+        fastest = sdpa["fastest"]
+        fast = times[lib if fastest == "default" else f"{lib}@{fastest}"]
         rec = {"ms": t["device"], "host_loop_ms": t["host_loop"],
+               "rounds_ms": t["rounds_device"],
                "plain_ms": times[plain]["device"],
-               "library_ms": times[lib]["device"],
-               "library_host_loop_ms": times[lib]["host_loop"],
+               "library_ms": sdpa["fastest_ms"],
+               "library_backend": (sdpa["default_backend"]
+                                   if fastest == "default" else fastest),
+               "library_host_loop_ms": fast["host_loop"],
+               "library_by_backend": sdpa["ms"],
+               "library_default_backend": sdpa["default_backend"],
                "bound_ms": bound_ms, "bound_by": bound_by,
                "factor_vs_bound": t["device"] / bound_ms,
-               "factor_vs_library": t["device"] / times[lib]["device"], **extra}
+               "factor_vs_library": t["device"] / sdpa["fastest_ms"], **extra}
         return rec
 
     tensor_ms, by = bound(fwd_flops, fwd_bytes, PEAK_FLOPS["bfloat16"])

@@ -4,10 +4,11 @@
 fusing language into 3D feature volumes that the main model does not use).
 
 Volumes are channels-last, [B, D, H, W, C], as in the JAX package. Its
-1×1×1 convolutions are per-voxel linear maps, so they are `nn.Linear`
-here (`convert.attention3d_state_dict` reads flax's DHWIO kernels). As in
-flax: LayerNorm eps 1e-6, the tanh GELU, the cross-attention's logits and
-softmax in fp32.
+1×1×1 convolutions are per-voxel linear maps, so they are `blocks.Dense`
+here, as its dense layers are (`convert.attention3d_state_dict` reads
+flax's DHWIO kernels), and `blocks.initialize` draws flax's initializers.
+As in flax: LayerNorm eps 1e-6, the tanh GELU, the cross-attention's
+logits and softmax in fp32.
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from manigaussian_tpu_torch.models.blocks import Dense
 
 LN_EPS = 1e-6
 
@@ -31,8 +34,8 @@ class LinearAttention3D(nn.Module):
         super().__init__()
         self.heads, self.dim_head = heads, dim_head
         inner = heads * dim_head
-        self.to_qkv = nn.Linear(channels, 3 * inner, bias=False)
-        self.to_out = nn.Linear(inner, channels)
+        self.to_qkv = Dense(channels, 3 * inner, use_bias=False)
+        self.to_out = Dense(inner, channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, d, h, w, _ = x.shape
@@ -55,10 +58,10 @@ class CrossAttention3D(nn.Module):
         super().__init__()
         self.heads, self.dim_head = heads, dim_head
         inner = heads * dim_head
-        self.to_q = nn.Linear(channels, inner, bias=False)
-        self.to_k = nn.Linear(context_dim, inner, bias=False)
-        self.to_v = nn.Linear(context_dim, inner, bias=False)
-        self.to_out = nn.Linear(inner, channels)
+        self.to_q = Dense(channels, inner, use_bias=False)
+        self.to_k = Dense(context_dim, inner, use_bias=False)
+        self.to_v = Dense(context_dim, inner, use_bias=False)
+        self.to_out = Dense(inner, channels)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
         b, d, h, w, c = x.shape
@@ -86,8 +89,8 @@ class Visual3DLangTransformer(nn.Module):
         self.cross_attn = CrossAttention3D(channels, context_dim, heads,
                                            dim_head)
         self.norm3 = nn.LayerNorm(channels, eps=LN_EPS)
-        self.ff_in = nn.Linear(channels, channels * mlp_mult)
-        self.ff_out = nn.Linear(channels * mlp_mult, channels)
+        self.ff_in = Dense(channels, channels * mlp_mult)
+        self.ff_out = Dense(channels * mlp_mult, channels)
 
     def forward(self, x: torch.Tensor, lang_tokens: torch.Tensor
                 ) -> torch.Tensor:

@@ -158,7 +158,10 @@ class Conv3DBlock(nn.Module):
     float32 and add the float32 bias before casting to `dtype`; 'xla' adds
     the bias in `dtype`, and that difference in rounding is kept. With
     'pallas' the weight gradient is rounded to `dtype` before it reaches the
-    float32 parameter, as in the JAX custom VJP.
+    float32 parameter, as in the JAX custom VJP. `init` names the weight's
+    initializer where the mirrored flax layer is a plain `nn.Conv`
+    ("lecun_normal"); by default it follows the activation as the JAX
+    block's does.
     """
 
     def __init__(self, in_channels: int, out_channels: int,
@@ -166,7 +169,7 @@ class Conv3DBlock(nn.Module):
                  activation: Optional[str] = None,
                  padding: Optional[int] = None,
                  dtype: torch.dtype = torch.float32, pad_mode: str = "edge",
-                 impl: str = "xla"):
+                 impl: str = "xla", init: Optional[str] = None):
         super().__init__()
         k = kernel_size
         self.weight = nn.Parameter(torch.empty(out_channels, in_channels, k, k, k))
@@ -175,9 +178,11 @@ class Conv3DBlock(nn.Module):
         self.pad = k // 2 if padding is None else padding
         self.activation = activation
         self.dtype, self.pad_mode, self.impl = dtype, pad_mode, impl
+        self.init = init
 
     def init_params(self, generator: torch.Generator):
-        init_weight_(self.weight, init_kind(self.activation), generator)
+        init_weight_(self.weight, self.init or init_kind(self.activation),
+                     generator)
         nn.init.zeros_(self.bias)
 
     def forward(self, x):  # [B, D, H, W, C]

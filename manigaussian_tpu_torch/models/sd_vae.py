@@ -38,6 +38,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from manigaussian_tpu_torch.models.blocks import init_weight_
+
 COMPVIS_PREFIX = "first_stage_model."
 # flat res-block indices whose input the encoder / decoder return (ODISE)
 ENCODER_TAPS = (5, 7)
@@ -230,14 +232,13 @@ class SDVae(nn.Module):
 
     def init_params(self, generator: torch.Generator) -> "SDVae":
         """Random weights from `generator` (drawn on the CPU, so one seed
-        gives one tower on any device): conv kernels normal with variance
-        1/fan_in (flax's lecun_normal, untruncated), biases 0, norms 1/0."""
+        gives one tower on any device): conv kernels flax's lecun_normal
+        (std 1/√fan_in, truncated at ±2σ), biases 0, norms 1/0."""
         with torch.no_grad():
             for m in self.modules():
                 if isinstance(m, nn.Conv2d):
-                    fan_in = m.weight[0].numel()
-                    w = torch.randn(m.weight.shape, generator=generator)
-                    m.weight.copy_(w / math.sqrt(fan_in))
+                    w = torch.empty(m.weight.shape)
+                    m.weight.copy_(init_weight_(w, "lecun_normal", generator))
                     m.bias.zero_()
                 elif isinstance(m, nn.GroupNorm):
                     m.weight.fill_(1.0)

@@ -48,8 +48,10 @@ class VoxelUNetShallow(nn.Module):
         self.up2 = ConvNormAct3D(c[3], c[2], dtype=dtype)
         self.up1 = ConvNormAct3D(c[2], c[1], dtype=dtype)
         self.up0 = ConvNormAct3D(c[1], c[0], dtype=dtype)
-        # 1×1 out conv in the compute dtype (d0 is emitted in `dtype`)
-        self.out = Conv3DBlock(c[0], out_channels, kernel_size=1, dtype=dtype)
+        # 1×1 out conv in the compute dtype (d0 is emitted in `dtype`); a
+        # plain flax nn.Conv in the JAX body, so lecun_normal
+        self.out = Conv3DBlock(c[0], out_channels, kernel_size=1, dtype=dtype,
+                               init="lecun_normal")
 
     def forward(self, x):
         voxel_list = [x]

@@ -7,7 +7,8 @@ and without the warmup-cosine schedule, parameters and both moments within
 1e-6 relative to each leaf's scale (the two differ only in the rounding of
 1 − b^count and of the schedule, both a few ulps of fp32). The micro
 `w_geo` trajectory (two steps of JAX's jitted `update` and of the port's,
-fp32, dropout 0, JAX's augmentation draws fed to the port) at
+each port step from JAX's parameters, moments and count before it, fp32,
+dropout 0, JAX's augmentation draws fed to the port) at
 test_torch_train.py's rule: every metric within 1e-4·max(1, |value|). The
 checkpoint and the broadcast: bit for bit.
 """
@@ -34,7 +35,8 @@ from manigaussian_tpu_torch.utils.optimizers import (AdamW, Lamb,
                                                      warmup_cosine_schedule)
 from tests.test_torch_train import jax_draws, make_batch, micro_cfg
 from tests.torch_parallel_workers import adam_replicate_worker, run_ranks
-from tests.torch_port_helpers import random_flax_params, torch_config
+from tests.torch_port_helpers import (load_jax_train_state,
+                                      random_flax_params, torch_config)
 
 SHAPES = [(5, 3), (7,), (2, 2, 2), (4,)]
 
@@ -126,6 +128,7 @@ def test_adam_train_step_follows_jax():
     gen = torch.Generator().manual_seed(0)
     for i in range(2):
         key = jax.random.PRNGKey(10 + i)
+        load_jax_train_state(tagent, state)
         state, jm = update(state, jb, key)
         tm = tagent.update(batch, gen, draws=jax_draws(cfg, key, 2))
         assert set(tm) == set(jm)

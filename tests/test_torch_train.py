@@ -2,13 +2,17 @@
 
 `update` on `micro_variant("w_geo")` in fp32 with dropout 0, from JAX
 parameters converted one to one, with JAX's own augmentation draws fed to
-the port: three steps of jitted JAX `agent.update` and of the port's
-`update`, batch 2 (two views render as one problem of 2·T tiles).
+the port: three steps of jitted JAX `agent.update`, and before each the
+port put at JAX's state (parameters, LAMB's moments, the counts, leaf for
+leaf: `load_jax_train_state`) taking the same step with its `update`,
+batch 2 (two views render as one problem of 2·T tiles). Step by step from
+equal inputs, since two trajectories part by more than one step's
+rounding: LAMB turns a gradient's last bits into moves of either sign.
 
 Tolerances: every metric within 1e-4·max(1, |value|), step by step (fp32
 through the policy, the renderer and the blend, summed in other orders;
-measured ≤ 3e-5 over the three steps); parameters
-after three LAMB steps within 2e-5 + 1e-3 relative of their leaf's scale
+measured ≤ 3.4e-6); parameters
+after the third LAMB step within 2e-5 + 1e-3 relative of their leaf's scale
 (LAMB normalizes each leaf's step, so a leaf moves by about lr·‖w‖ per step
 whatever the gradient's size, and a gradient entry near 0 may change sign
 between the two sums), but for the one leaf whose exact gradient is zero
@@ -36,7 +40,8 @@ from manigaussian_tpu_torch.agents.bc_agent import \
     ManiGaussianBCAgent as TAgent
 from manigaussian_tpu_torch.ops.augmentation import SE3Draws
 from manigaussian_tpu_torch.utils.optimizers import Lamb
-from tests.torch_port_helpers import random_flax_params, torch_config
+from tests.torch_port_helpers import (load_jax_train_state,
+                                      random_flax_params, torch_config)
 
 STEPS = 3
 # the one bias shared by all logits of the translation softmax: its exact
@@ -111,6 +116,7 @@ def trajectories():
     gen = torch.Generator().manual_seed(0)
     for i in range(STEPS):
         key = jax.random.PRNGKey(10 + i)
+        load_jax_train_state(tagent, state)
         state, metrics = update(state, jb, key)
         jm.append({k: float(v) for k, v in metrics.items()})
         out = tagent.update(batch, gen, draws=jax_draws(cfg, key, 2))

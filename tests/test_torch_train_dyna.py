@@ -6,14 +6,15 @@ field's warm-up gate at step 1 (`next_mlp.warm_up=1`), from JAX parameters
 converted one to one (a tree built with the 'pallas' conv keeps
 `{kernel, bias}` flat; the deformation MLP sits in the renderer's subtree),
 with JAX's own augmentation draws fed to the port: three steps of jitted JAX
-`agent.update` and of the port's `update`, batch 2. Step 0 is before the
+`agent.update` and of the port's `update`, each port step from JAX's state
+before it (`load_jax_train_state`, as in tests/test_torch_train.py), batch 2. Step 0 is before the
 gate (one render; `dyna_loss` is logged against the zero image and stays out
 of the total), steps 1-2 after it (two renders; `lambda_dyna · dyna_loss`
 enters the total and the deformation field trains).
 
 The JAX conv runs its Pallas kernels in interpret mode, the port its plain
 versions. Tolerances as in tests/test_torch_train.py: every metric within
-1e-4·max(1, |value|) step by step; parameters after three LAMB steps within
+1e-4·max(1, |value|) step by step; parameters after the third LAMB step within
 2e-5 + 1e-3 of their leaf's scale (but for the one leaf whose exact gradient
 is zero, see NOISE_LEAF).
 """
@@ -33,7 +34,8 @@ from manigaussian_tpu_torch import convert
 from manigaussian_tpu_torch.agents.bc_agent import \
     ManiGaussianBCAgent as TAgent
 from tests.test_torch_train import MICRO, jax_draws, make_batch
-from tests.torch_port_helpers import random_flax_params, torch_config
+from tests.torch_port_helpers import (load_jax_train_state,
+                                      random_flax_params, torch_config)
 
 STEPS = 3
 WARM_UP = 1
@@ -89,6 +91,7 @@ def trajectories():
     gen = torch.Generator().manual_seed(0)
     for i in range(STEPS):
         key = jax.random.PRNGKey(20 + i)
+        load_jax_train_state(tagent, state)
         state, metrics = update(state, jb, key)
         jm.append({k: float(v) for k, v in metrics.items()})
         out = tagent.update(batch, gen, draws=jax_draws(cfg, key, 2))

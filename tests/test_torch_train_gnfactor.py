@@ -6,7 +6,8 @@ eval and train entry point.
 fp32, dropout 0, the NeRF cut to 8 coarse / 6 fine (2 of them around the
 depth) samples on 32 rays a sample, batch 2, from JAX parameters converted
 one to one: three steps of jitted JAX `agent.update` and of the port's
-`update`, with JAX's augmentation draws fed to the port, with and without a
+`update` (each from JAX's state before it, as in tests/test_torch_train.py),
+with JAX's augmentation draws fed to the port, with and without a
 ground-truth embedding. The NeRF's draws are fed to both packages as in
 tests/test_torch_nerf_renderer.py (`feed_draws`: the port's `sample_draws`
 and, through a monkeypatch of the JAX module's global `jax`, JAX's
@@ -15,7 +16,7 @@ when it traces, so every step of both packages renders with the same
 draws).
 
 Tolerances as tests/test_torch_train.py: every metric within
-1e-4·max(1, |value|) step by step; parameters after three LAMB steps within
+1e-4·max(1, |value|) step by step; parameters after the third LAMB step within
 2e-5 + 1e-3 of their leaf's scale (NOISE_LEAF: LAMB's step bound).
 """
 
@@ -37,7 +38,8 @@ from manigaussian_tpu_torch.rendering.nerf_renderer import (
 from tests.test_torch_nerf_renderer import feed_draws, make_draws
 from tests.test_torch_train import (MICRO, NOISE_LEAF, jax_draws, make_batch,
                                     micro_cfg)
-from tests.torch_port_helpers import random_flax_params, torch_config
+from tests.torch_port_helpers import (load_jax_train_state,
+                                      random_flax_params, torch_config)
 
 STEPS = 3
 NERF = dict(n_coarse=8, n_fine=6, n_fine_depth=2, ray_chunk_size=32)
@@ -99,6 +101,7 @@ def trajectories(request):
         update = jax.jit(jagent.update)
         for i in range(STEPS):
             key = jax.random.PRNGKey(20 + i)
+            load_jax_train_state(tagent, state)
             state, metrics = update(state, jb, key)
             jm.append({k: float(v) for k, v in metrics.items()})
             out = tagent.update(batch, gen, draws=jax_draws(cfg, key, 2))

@@ -4,15 +4,16 @@ JAX package on the CPU, and the train entry point of the semantic tier.
 `update` on `micro_variant("w_geo_sem_dyna")` in fp32, dropout 0, the
 dynamic field's warm-up gate at step 1, batch 2, from JAX parameters
 converted one to one: three steps of jitted JAX `agent.update` and of the
-port's `update` on the same batches and augmentation draws, with JAX's
-`gt_embed` (its stub extractor + PCA) fed to both — the embedding pipeline
-is held on its own (tests/test_torch_foundation.py), since a PCA sign flip
+port's `update` (each from JAX's state before it, as in
+tests/test_torch_train.py) on the same batches and augmentation draws,
+with JAX's `gt_embed` (its stub extractor + PCA) fed to both — the
+embedding pipeline is held on its own (tests/test_torch_foundation.py), since a PCA sign flip
 changes the cosine loss. The embed loss enters every step; the deformation
 field reads the detached embedding, so its first layer is 3 inputs wider
 than in `w_geo_dyna`.
 
 Tolerances as tests/test_torch_train_dyna.py: every metric within
-1e-4·max(1, |value|) step by step; parameters after three LAMB steps within
+1e-4·max(1, |value|) step by step; parameters after the third LAMB step within
 2e-5 + 1e-3 of their leaf's scale (NOISE_LEAF: LAMB's step bound).
 
 Then the train CLI on `--cpu --synthetic --variant w_geo_sem_dyna`, with
@@ -38,7 +39,8 @@ from manigaussian_tpu_torch.agents.bc_agent import \
     ManiGaussianBCAgent as TAgent
 from tests.test_torch_train import MICRO, jax_draws
 from tests.test_torch_train_dyna import NOISE_LEAF, make_dyna_batch
-from tests.torch_port_helpers import random_flax_params, torch_config
+from tests.torch_port_helpers import (load_jax_train_state,
+                                      random_flax_params, torch_config)
 
 STEPS = 3
 WARM_UP = 1
@@ -84,6 +86,7 @@ def trajectories():
     gen = torch.Generator().manual_seed(0)
     for i in range(STEPS):
         key = jax.random.PRNGKey(30 + i)
+        load_jax_train_state(tagent, state)
         state, metrics = update(state, jb, key)
         jm.append({k: float(v) for k, v in metrics.items()})
         out = tagent.update(batch, gen, draws=jax_draws(cfg, key, 2))

@@ -136,23 +136,31 @@ def train_cfg(cfg_dict):
     return from_dict(cfg_dict, ManiGaussianConfig())
 
 
-def one_process_update(cfg, batches, seed: int = 3, draws=None):
-    """The port's one-process update on the global batches: (metrics by
-    step, gradients and parameters after the last step). It runs at the
-    ranks' thread count, whatever the caller's: the reductions' order
-    follows the thread count, and LAMB carries that difference from step 0
-    into step 1's losses beyond the tests' 1e-5."""
+def one_process_steps(cfg, batches, starts, seed: int = 3, draws=None):
+    """The port's one-process update on the global batches, step k run from
+    `starts[k]` (what a rank held before its step k: the parameters, the
+    optimizer's state, the step count and the generator's state): a list of
+    (metrics, gradients, parameters after the step, what the next step
+    starts from), one a step. It runs at the ranks' thread count, whatever
+    the caller's: the reductions' order follows the thread count."""
     from manigaussian_tpu_torch.agents.registry import create_agent
     caller_threads = torch.get_num_threads()
     torch.set_num_threads(THREADS)
     try:
         agent = create_agent(cfg, device="cpu", seed=seed)
-        gen = torch.Generator().manual_seed(0)
-        metrics = []
-        for i, b in enumerate(batches):
+        gen = torch.Generator()
+        out = []
+        for i, (b, start) in enumerate(zip(batches, starts)):
+            with torch.no_grad():
+                for p, w in zip(agent.qfn.parameters(), start["params"]):
+                    p.copy_(w)
+            agent.optimizer().load_state_dict(start["opt"])
+            agent.step = start["step"]
+            gen.set_state(start["gen"])
             m = agent.update(b, gen, None if draws is None else draws[i])
-            metrics.append({k: float(v) for k, v in m.items()})
-        return metrics, _grads(agent), _params(agent)
+            out.append(({k: float(v) for k, v in m.items()}, _grads(agent),
+                        _params(agent), _start(agent, gen)))
+        return out
     finally:
         torch.set_num_threads(caller_threads)
 
@@ -166,13 +174,25 @@ def _params(agent):
     return [p.detach().clone() for p in agent.qfn.parameters()]
 
 
+def _start(agent, gen):
+    """What the next step starts from, as copies: the parameters, the
+    optimizer's state, the step count and the generator's state."""
+    opt = agent.optimizer().state_dict()
+    opt["mu"] = [m.clone() for m in opt["mu"]]
+    opt["nu"] = [v.clone() for v in opt["nu"]]
+    return {"params": _params(agent), "opt": opt, "step": agent.step,
+            "gen": gen.get_state()}
+
+
 def train_worker(rank, port, world, shape, axes, cfg_dict, batches, out,
                  draws=None, seed=3, state_path=None):
     """The sharded update on a mesh of `shape` over `axes` ("data" and/or
     "tile"), every rank from the same seeded weights and generator, on the
-    same global batches: metrics by step, the gradients and parameters
-    after the last step, and whether every rank holds the same parameters
-    bit for bit. `state_path`: a state dict to start from instead."""
+    same global batches. By step: what the step started from (`_start`),
+    its metrics, and the gradients and parameters after it; what a next
+    step would start from (`end`); and whether every rank holds the same
+    parameters bit for bit at the end.
+    `state_path`: a state dict to start from instead."""
     import torch.distributed as dist
 
     from manigaussian_tpu_torch.agents.registry import create_agent
@@ -188,16 +208,17 @@ def train_worker(rank, port, world, shape, axes, cfg_dict, batches, out,
         agent.qfn.load_state_dict(torch.load(state_path))
     step = make_sharded_update(agent, mesh)
     gen = torch.Generator().manual_seed(0)
-    metrics = []
+    res = {"starts": [], "metrics": [], "grads": [], "params": []}
     for i, b in enumerate(batches):
+        res["starts"].append(_start(agent, gen))
         m = step(b, gen, None if draws is None else draws[i])
-        metrics.append({k: float(v) for k, v in m.items()})
-    res = {"metrics": metrics, "grads": _grads(agent),
-           "params": _params(agent),
-           "in_sync": params_in_sync(_params(agent))}
+        res["metrics"].append({k: float(v) for k, v in m.items()})
+        res["grads"].append(_grads(agent))
+        res["params"].append(_params(agent))
+    res["end"] = _start(agent, gen)
+    res["in_sync"] = params_in_sync(_params(agent))
     _save(out, rank, res)
     dist.destroy_process_group()
-
 
 
 def act_worker(rank, port, world, cfg_dict, observation, out):
