@@ -1,0 +1,78 @@
+"""The output check fails a run whose timed path is broken underneath:
+a training step that leaves the state unchanged; a splat render, the next
+frame's render or the semantic tower's GT embedding gone wrong
+(`faults.py`); an act whose answer is altered where it is produced. The
+harness's look for a chip is skipped; the rest of a run goes as on the
+card, at micro widths on the CPU, with the cells' own limits."""
+
+import pytest
+
+from bench_micro import context, micro_base, small_tower
+
+from benchmark import run as R
+from benchmark.faults import planted
+
+
+@pytest.fixture
+def base(tmp_path, monkeypatch):
+    monkeypatch.setenv("TMPDIR", str(tmp_path / "tmp"))
+    small_tower(monkeypatch)
+    return micro_base(str(tmp_path / "copy"))
+
+
+@pytest.mark.parametrize("cell", ["w_geo.train", "w_geo_sem_dyna.train"])
+def test_sound_training_run_is_correct(cell, base):
+    fields, _ = R.run_cell(context(base, cell), base)
+    assert fields["correct"]
+
+
+@pytest.mark.parametrize("fault,caught_by", [("next_render", "render"),
+                                             ("gt_embed", "gt_embed")])
+def test_render_or_embedding_gone_wrong(fault, caught_by, base):
+    with planted(fault):
+        fields, checks = R.run_cell(context(base, "w_geo_sem_dyna.train"),
+                                    base)
+    assert not fields["correct"]
+    numbers = {n: v for n, v, _ in checks}
+    limits = {n: lim for n, _, lim in checks}
+    assert numbers[caught_by] > limits[caught_by], numbers
+
+
+def test_step_that_leaves_its_state_unchanged(base):
+    ctx = context(base, "w_geo.train")
+
+    def unchanged(agent, batch, gen):
+        opt = agent.optimizer()
+        step = opt.step
+        opt.step = lambda: None
+        try:
+            return agent.update(batch, gen)
+        finally:
+            opt.step = step
+
+    ctx.step = unchanged
+    fields, checks = R.run_cell(ctx, base)
+    assert not fields["correct"]
+    assert dict((n, v) for n, v, _ in checks)["change"] == pytest.approx(1.0, abs=0.05)
+
+
+def test_sound_act_run_is_correct(base):
+    fields, _ = R.run_cell(context(base, "w_geo.act"), base)
+    assert fields["correct"]
+
+
+def test_act_with_an_altered_answer(base):
+    ctx = context(base, "w_geo.act")
+
+    def altered(agent, obs):
+        res = agent.act(obs)
+        v = agent.cfg.method.voxel_sizes[0]
+        q = agent.q_values(obs).q_trans.reshape(-1)
+        worst = int(q.argmin())
+        res.trans_coords[0] = res.trans_coords.new_tensor(
+            [worst // (v * v), (worst // v) % v, worst % v])
+        return res
+
+    ctx.act = altered
+    fields, _ = R.run_cell(ctx, base)
+    assert not fields["correct"]
