@@ -308,12 +308,6 @@ BLEND_OLD = {"fwd": (2, 20), "bwd": (4, 60)}
 # stays a few bf16 steps (2^-8 relative each) of the Q-values' scale.
 ROUTE_TOL = 5e-2
 
-# the named ranges of the port (agents/bc_agent.update, ops/rasterizer):
-# on the device timeline they are annotation events spanning their kernels,
-# not kernels
-RANGE_PREFIXES = ("update/", "rasterize/")
-
-
 def log(phase: str, **kw) -> None:
     print(json.dumps({"phase": phase, **kw}), flush=True)
 
@@ -360,10 +354,12 @@ def cuda_ms(fn, iters: int = 30, warmup: int = 5) -> float:
 def device_ms(fn, iters: int = 20, warmup: int = 3, by_kernel=None) -> float:
     """Device reading: the summed durations of the device work (kernels and
     memsets) that `iters` calls of `fn` launch, from torch.profiler's CUDA
-    trace, per call (the named ranges' annotation events left out). The host's enqueue rate and the gaps between launches do
-    not show. `by_kernel`, a dict, receives the time per call of each kernel
-    name. A profiler session started right after another one may come back
-    without its device records; such a session is run again, up to twice."""
+    trace, per call (the port's named ranges are function-scope records,
+    with no events of their own on the device). The host's enqueue rate and
+    the gaps between launches do not show. `by_kernel`, a dict, receives
+    the time per call of each kernel name. A profiler session started right
+    after another one may come back without its device records; such a
+    session is run again, up to twice."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -378,8 +374,7 @@ def device_ms(fn, iters: int = 20, warmup: int = 3, by_kernel=None) -> float:
                 fn()
             torch.cuda.synchronize()
         events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA
-                  and not e.key.startswith(RANGE_PREFIXES)]
+                  if e.device_type == DeviceType.CUDA]
         total_us = sum(e.self_device_time_total for e in events)
         if total_us > 0:
             break
@@ -1706,7 +1701,7 @@ def phase_profile(step, label: str, calls: int = 3,
     """Where one call's time goes: torch.profiler over `calls` calls of
     `step` (which ends in a device→host copy) — wall time, summed kernel
     time (the device's busy share, one stream), the device time of the
-    kernels started inside each named range `ranges_of`* (the backward's:
+    kernels launched inside each named range `ranges_of`* (the backward's:
     the rest), the kernels and the aten ops with the most device time, all
     per call."""
     import torch
@@ -1722,9 +1717,7 @@ def phase_profile(step, label: str, calls: int = 3,
             step()
         wall_ms = (time.perf_counter() - t0) * 1e3 / calls
     events = prof.key_averages()
-    named = lambda key: key.startswith(RANGE_PREFIXES)
-    kernels = sorted((e for e in events if e.device_type == DeviceType.CUDA
-                      and not named(e.key)),
+    kernels = sorted((e for e in events if e.device_type == DeviceType.CUDA),
                      key=lambda e: -e.self_device_time_total)
     ops = sorted((e for e in events if e.device_type == DeviceType.CPU
                   and e.key.startswith("aten::")),
@@ -1734,19 +1727,14 @@ def phase_profile(step, label: str, calls: int = 3,
                    if "flash_" in e.key) / 1e3 / calls
     blend_ms = sum(e.self_device_time_total for e in kernels
                    if "blend_" in e.key) / 1e3 / calls
-    # device time of the kernels that start inside each range's device span;
+    # device time of the kernels launched inside each range by its thread;
     # autograd launches the backward's kernels from its own thread, outside
     # the "update/backward" range, so the backward's share is the rest
-    flat = prof.events()
-    spans = [e for e in flat if e.name.startswith(ranges_of)
-             and e.device_type == DeviceType.CUDA]
-    kern = [e.time_range for e in flat
-            if e.device_type == DeviceType.CUDA and not named(e.name)]
     ranges = {}
-    for e in spans:
-        inside = sum(k.elapsed_us() for k in kern
-                     if e.time_range.start <= k.start < e.time_range.end)
-        ranges[e.name] = ranges.get(e.name, 0.0) + inside / 1e3 / calls
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.name.startswith(ranges_of):
+            ranges[e.name] = (ranges.get(e.name, 0.0)
+                              + e.device_time_total / 1e3 / calls)
     if ranges:
         ranges[ranges_of + "backward (the rest)"] = (device_ms
                                                      - sum(ranges.values()))

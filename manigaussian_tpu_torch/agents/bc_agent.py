@@ -25,7 +25,6 @@ from typing import Dict, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from manigaussian_tpu_torch.agents.qfunction import (QFunction, QOutput,
                                                      choose_highest_action)
@@ -42,6 +41,7 @@ from manigaussian_tpu_torch.rendering.neural_renderer import RenderResult
 from manigaussian_tpu_torch.utils.device import DeviceLike, resolve_device
 from manigaussian_tpu_torch.utils.optimizers import (AdamW, Lamb,
                                                      warmup_cosine_schedule)
+from manigaussian_tpu_torch.utils.profiling import trace_annotation
 
 
 class ActResult(NamedTuple):
@@ -148,17 +148,17 @@ class ManiGaussianBCAgent:
             action_trans, action_rot_grip, pcd = (out.action_trans,
                                                   out.action_rot_grip, out.pcd)
         opt = self.optimizer()
-        with record_function("update/forward"):
+        with trace_annotation("update/forward"):
             self.qfn.train()
             total, metrics = self._losses(b, rgb, pcd, action_trans,
                                           action_rot_grip, generator, mesh)
             self.qfn.eval()
         opt.zero_grad()
-        with record_function("update/backward"):
+        with trace_annotation("update/backward"):
             total.backward()
             if mesh is not None:
                 average_gradients(opt.params, mesh)
-        with record_function("update/optimizer"):
+        with trace_annotation("update/optimizer"):
             opt.step()
         self.step += 1
         metrics = {k: v.detach() for k, v in metrics.items()}
@@ -210,10 +210,12 @@ class ManiGaussianBCAgent:
     def q_values(self, observation: Dict) -> QOutput:
         """The QFunction's outputs for one batched observation (act's first
         half, exposed for parity checks)."""
-        o = {k: torch.as_tensor(observation[k], dtype=torch.float32,
-                                device=self.device) for k in OBS_KEYS}
-        return self.qfn(normalize_rgb(o["rgb"]), o["pcd"], o["low_dim_state"],
-                        o["lang_goal_emb"], o["lang_token_embs"], self.bounds)
+        with trace_annotation("policy/inputs"):
+            o = {k: torch.as_tensor(observation[k], dtype=torch.float32,
+                                    device=self.device) for k in OBS_KEYS}
+            rgb = normalize_rgb(o["rgb"])
+        return self.qfn(rgb, o["pcd"], o["low_dim_state"], o["lang_goal_emb"],
+                        o["lang_token_embs"], self.bounds)
 
     @torch.no_grad()
     def render_for_vis(self, batch: Dict) -> Optional[RenderResult]:
@@ -241,20 +243,30 @@ class ManiGaussianBCAgent:
     @torch.no_grad()
     def act(self, observation: Dict) -> ActResult:
         """Greedy policy. observation: rgb [B,ncam,H,W,3] in [0,1], pcd,
-        low_dim_state, lang_goal_emb, lang_token_embs (numpy or tensors)."""
+        low_dim_state, lang_goal_emb, lang_token_embs (numpy or tensors).
+        The stages are named ranges for torch.profiler, in call order:
+        "policy/inputs", "policy/voxelize" (QFunction), "policy/encoder",
+        "policy/perceiver", "policy/decoder" (the Perceiver) and
+        "policy/decode"."""
         m = self.cfg.method
         q = self.q_values(observation)
-        coords, rot_grip, coll = choose_highest_action(
-            q.q_trans, q.q_rot_grip, q.q_collision, m.rotation_resolution)
-
-        bounds = self.bounds
-        vsize = torch.tensor(float(m.voxel_sizes[0]), device=self.device)
-        res = (bounds[3:] - bounds[:3]) / vsize
-        # attention coordinate = voxel center (qattention:1120-1123)
-        attention_coord = bounds[:3] + res * coords.to(torch.float32) + res / 2
-        quat = discrete_euler_to_quaternion(rot_grip[:, :3],
-                                            float(m.rotation_resolution))
-        continuous = torch.cat(
-            [attention_coord, quat, rot_grip[:, 3:4].to(torch.float32),
-             coll.to(torch.float32)], dim=-1)
+        with trace_annotation("policy/decode"):
+            with trace_annotation("policy/decode/argmax"):
+                coords, rot_grip, coll = choose_highest_action(
+                    q.q_trans, q.q_rot_grip, q.q_collision,
+                    m.rotation_resolution)
+            with trace_annotation("policy/decode/quaternion"):
+                quat = discrete_euler_to_quaternion(
+                    rot_grip[:, :3], float(m.rotation_resolution))
+            with trace_annotation("policy/decode/action"):
+                bounds = self.bounds
+                vsize = torch.tensor(float(m.voxel_sizes[0]),
+                                     device=self.device)
+                res = (bounds[3:] - bounds[:3]) / vsize
+                # attention coordinate = voxel center (qattention:1120-1123)
+                attention_coord = (bounds[:3] + res * coords.to(torch.float32)
+                                   + res / 2)
+                continuous = torch.cat(
+                    [attention_coord, quat, rot_grip[:, 3:4].to(torch.float32),
+                     coll.to(torch.float32)], dim=-1)
         return ActResult(continuous, coords, rot_grip, coll)

@@ -29,6 +29,7 @@ from manigaussian_tpu_torch.rendering.nerf_renderer import \
 from manigaussian_tpu_torch.rendering.neural_renderer import (NeuralRenderer,
                                                               RenderLosses,
                                                               RenderResult)
+from manigaussian_tpu_torch.utils.profiling import trace_annotation
 
 
 class QOutput(NamedTuple):
@@ -131,7 +132,7 @@ class QFunction(nn.Module):
                 deterministic: bool = True,
                 generator: Optional[torch.Generator] = None, mesh=None,
                 tile_mesh=None) -> QOutput:
-        with torch.no_grad():
+        with torch.no_grad(), trace_annotation("policy/voxelize"):
             voxel_grid = build_voxel_grid(pcd, rgb, bounds,
                                           self.cfg.voxel_sizes[0])
         rows = None if mesh is None else mesh.rows(rgb.shape[0])

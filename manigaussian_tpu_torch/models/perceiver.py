@@ -43,6 +43,7 @@ from manigaussian_tpu_torch.models.blocks import (ChannelProjectConv3D,
 from manigaussian_tpu_torch.models.unet3d import VoxelUNetShallow
 from manigaussian_tpu_torch.ops.flash_attention import flash_self_attention
 from manigaussian_tpu_torch.parallel.distributed import Rows, global_draw
+from manigaussian_tpu_torch.utils.profiling import trace_annotation
 
 
 def flash_block_q(n: int) -> int:
@@ -249,57 +250,77 @@ class PerceiverVoxelLangEncoder(nn.Module):
                 generator: Optional[torch.Generator] = None,
                 rows: Optional[Rows] = None):
         """`rows`: this rank's place in a data-parallel global batch, for
-        the dropout draws (None: the batch is the whole batch)."""
+        the dropout draws (None: the batch is the whole batch). The three
+        stages are named ranges for torch.profiler: "policy/encoder" (the
+        U-Net and its summaries), "policy/perceiver" (tokens, latents and
+        the decoder cross-attention) and "policy/decoder" (the 100³
+        upsample, `final` and the heads). Each holds ranges under its own
+        name ("policy/perceiver/layer" once a self-attention layer), so
+        that a trace can place every gap between the device's kernels."""
         b = voxel_grid.shape[0]
         drop = dict(deterministic=deterministic, generator=generator,
                     rows=rows)
         s = self.spatial
-        if self.no_language:
-            lang_token_embs = torch.zeros_like(lang_token_embs)
 
-        d0, _ = self.encoder_3d(voxel_grid)                    # [B,V,V,V,im]
-        feats = list(spatial_softmax3d_with_max(d0))
+        with trace_annotation("policy/encoder"):
+            d0, _ = self.encoder_3d(voxel_grid)                # [B,V,V,V,im]
+            with trace_annotation("policy/encoder/summaries"):
+                feats = list(spatial_softmax3d_with_max(d0))
 
-        ins = self.patchify(d0)                                # [B,S,S,S,im]
-        if self.proprio_preprocess is not None:
-            p = self.proprio_preprocess(proprio)               # [B,im] fp32
-            p = p[:, None, None, None, :].expand(b, s, s, s, p.shape[-1])
-            ins = torch.cat([ins.float(), p], dim=-1)          # [B,S,S,S,2im]
-        queries_shape = ins.shape
-        ins = ins.reshape(b, s ** 3, ins.shape[-1])
+        with trace_annotation("policy/perceiver"):
+            with trace_annotation("policy/perceiver/tokens"):
+                ins = self.patchify(d0)                        # [B,S,S,S,im]
+                if self.proprio_preprocess is not None:
+                    p = self.proprio_preprocess(proprio)       # [B,im] fp32
+                    p = p[:, None, None, None, :].expand(b, s, s, s,
+                                                         p.shape[-1])
+                    ins = torch.cat([ins.float(), p], dim=-1)  # [B,S,S,S,2im]
+                queries_shape = ins.shape
+                ins = ins.reshape(b, s ** 3, ins.shape[-1])
 
-        lang = self.lang_preprocess(lang_token_embs)
-        num_lang = lang.shape[1]
-        ins = torch.cat([lang.float(), ins.float()], dim=1) + self.pos_encoding
+                if self.no_language:
+                    lang_token_embs = torch.zeros_like(lang_token_embs)
+                lang = self.lang_preprocess(lang_token_embs)
+                num_lang = lang.shape[1]
+                ins = (torch.cat([lang.float(), ins.float()], dim=1)
+                       + self.pos_encoding)
 
-        x = self.latents[None].expand(b, *self.latents.shape)
-        for _ in range(self.iterations):
-            x = self.cross_attn(x, context=ins, **drop) + x
-            x = self.cross_ff(x) + x
-            for sa, ff in zip(self.self_attn, self.self_ff):
-                x = sa(x, **drop) + x
-                x = ff(x) + x
+            x = self.latents[None].expand(b, *self.latents.shape)
+            for _ in range(self.iterations):
+                with trace_annotation("policy/perceiver/cross"):
+                    x = self.cross_attn(x, context=ins, **drop) + x
+                    x = self.cross_ff(x) + x
+                for sa, ff in zip(self.self_attn, self.self_ff):
+                    with trace_annotation("policy/perceiver/layer"):
+                        x = sa(x, **drop) + x
+                        x = ff(x) + x
 
-        dec = self.decoder_cross_attn(ins, context=x, **drop)  # [B,S³+77,2im]
-        dec = dec[:, num_lang:].reshape(queries_shape)
-        feats.extend(spatial_softmax3d_with_max(dec))
+            with trace_annotation("policy/perceiver/readout"):
+                dec = self.decoder_cross_attn(ins, context=x,
+                                              **drop)  # [B,S³+77,2im]
+                dec = dec[:, num_lang:].reshape(queries_shape)
+                feats.extend(spatial_softmax3d_with_max(dec))
 
-        up = self.up0(dec)                                     # [B,V,V,V,fd]
-        dt = self.dtype
-        if self.no_skip_connection:
-            lat = self.final(up)
-        elif self.no_perceiver:
-            lat = self.final(d0)
-        else:
-            lat = self.final(torch.cat([d0.to(dt), up.to(dt)], dim=-1))
-
-        trans = self.trans_decoder(lat)                        # [B,V,V,V,1]
-        rot_grip_q = collision_q = None
-        if self.num_rotation_classes > 0:
-            feats.extend(spatial_softmax3d_with_max(lat))
-            h = self.dense0(torch.cat(feats, dim=1))
-            h = self.dense1(h)
-            out = self.rot_grip_collision_ff(h)
-            rot_grip_q = out[:, :-self.num_collision_classes]
-            collision_q = out[:, -self.num_collision_classes:]
+        with trace_annotation("policy/decoder"):
+            dt = self.dtype
+            with trace_annotation("policy/decoder/volume"):
+                up = self.up0(dec)                             # [B,V,V,V,fd]
+                if self.no_skip_connection:
+                    lat = self.final(up)
+                elif self.no_perceiver:
+                    lat = self.final(d0)
+                else:
+                    lat = self.final(torch.cat([d0.to(dt), up.to(dt)],
+                                               dim=-1))
+            with trace_annotation("policy/decoder/trans"):
+                trans = self.trans_decoder(lat)                # [B,V,V,V,1]
+            rot_grip_q = collision_q = None
+            if self.num_rotation_classes > 0:
+                with trace_annotation("policy/decoder/heads"):
+                    feats.extend(spatial_softmax3d_with_max(lat))
+                    h = self.dense0(torch.cat(feats, dim=1))
+                    h = self.dense1(h)
+                    out = self.rot_grip_collision_ff(h)
+                    rot_grip_q = out[:, :-self.num_collision_classes]
+                    collision_q = out[:, -self.num_collision_classes:]
         return trans, rot_grip_q, collision_q, d0, lang

@@ -21,6 +21,7 @@ from torch import nn
 
 from manigaussian_tpu_torch.models.blocks import (Conv3DBlock, ConvNormAct3D,
                                                   to_ncdhw, to_ndhwc)
+from manigaussian_tpu_torch.utils.profiling import trace_annotation
 
 
 def _resize_nearest(z: torch.Tensor, size: int) -> torch.Tensor:
@@ -30,7 +31,9 @@ def _resize_nearest(z: torch.Tensor, size: int) -> torch.Tensor:
 
 class VoxelUNetShallow(nn.Module):
     """[B, V, V, V, Cin] → ([B, V, V, V, out_channels] in `dtype`,
-    [input, 25³ feats, 50³ feats]) with three stride-2 stages."""
+    [input, 25³ feats, 50³ feats]) with three stride-2 stages. The policy's
+    encoder: its two halves are the profiler ranges "policy/encoder/down"
+    and "policy/encoder/up"."""
 
     def __init__(self, in_channels: int = 10, out_channels: int = 128,
                  channels: Sequence[int] = (8, 16, 32, 64),
@@ -55,13 +58,15 @@ class VoxelUNetShallow(nn.Module):
 
     def forward(self, x):
         voxel_list = [x]
-        conv0 = self.enc0(x)                                       # V
-        conv2 = self.enc1(self.enc1_down(conv0))                   # V/2
-        conv4 = self.enc2(self.enc2_down(conv2))                   # V/4
-        mid = self.mid(self.mid_down(conv4))                       # V/8 (ceil)
-        x = conv4 + self.up2(_resize_nearest(mid, conv4.shape[1]))
-        voxel_list.append(x)
-        x = conv2 + self.up1(_resize_nearest(x, conv2.shape[1]))
-        voxel_list.append(x)
-        x = conv0 + self.up0(_resize_nearest(x, conv0.shape[1]))
-        return self.out(x), voxel_list
+        with trace_annotation("policy/encoder/down"):
+            conv0 = self.enc0(x)                                   # V
+            conv2 = self.enc1(self.enc1_down(conv0))               # V/2
+            conv4 = self.enc2(self.enc2_down(conv2))               # V/4
+            mid = self.mid(self.mid_down(conv4))                   # V/8 (ceil)
+        with trace_annotation("policy/encoder/up"):
+            x = conv4 + self.up2(_resize_nearest(mid, conv4.shape[1]))
+            voxel_list.append(x)
+            x = conv2 + self.up1(_resize_nearest(x, conv2.shape[1]))
+            voxel_list.append(x)
+            x = conv0 + self.up0(_resize_nearest(x, conv0.shape[1]))
+            return self.out(x), voxel_list

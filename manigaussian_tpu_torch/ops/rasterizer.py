@@ -48,12 +48,12 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
-from torch.profiler import record_function
 
 from manigaussian_tpu_torch.ops import gaussian_math as gm
 from manigaussian_tpu_torch.ops.blend import (blend_tiles,
                                               blend_tiles_reference,
                                               gather_splats)
+from manigaussian_tpu_torch.utils.profiling import trace_annotation
 
 
 class RasterizeConfig(NamedTuple):
@@ -241,11 +241,11 @@ def _blend(pre: gm.ProjectedGaussians, lang: torch.Tensor, gidx, in_list,
            cfg: RasterizeConfig, bg: torch.Tensor, b: int, tile_range=None):
     """Blend the packed tiles (of the window). Returns patches (color
     [B·T, P, 3], lang [B·T, P, F], final_t [B·T, P])."""
-    with record_function("rasterize/gather"):
+    with trace_annotation("rasterize/gather"):
         counts, origins, attrs, livet = pack_tiles(pre, lang, gidx, in_list,
                                                    cfg, b, tile_range)
     blend = blend_tiles if cfg.backend == "pallas" else blend_tiles_reference
-    with record_function("rasterize/blend"):
+    with trace_annotation("rasterize/blend"):
         color_t, lang_t, logtf = blend(counts, origins, attrs, livet,
                                        lang.shape[-1], cfg.tile,
                                        min(cfg.chunk, gidx.shape[1]))
@@ -264,12 +264,12 @@ def rasterize_batch(means3d: torch.Tensor, opacities: torch.Tensor, camera,
     if cfg.backend not in ("pallas", "xla"):
         raise ValueError(f"unknown rasterizer backend {cfg.backend!r}")
     b, n, _ = means3d.shape
-    with record_function("rasterize/preprocess"):
+    with trace_annotation("rasterize/preprocess"):
         pre = gm.preprocess(means3d, opacities, camera, cfg.width, cfg.height,
                             cfg.tile, scales=scales, rotations=rotations,
                             shs=shs, sh_degree=cfg.sh_degree,
                             scale_modifier=scale_modifier)
-    with record_function("rasterize/bin_sort"):
+    with trace_annotation("rasterize/bin_sort"):
         gidx, in_list, _, overflow_s, overflow_g = tile_lists(pre, cfg)
     lang = (means3d.new_zeros(b, n, 3) if language_features is None
             else language_features)
