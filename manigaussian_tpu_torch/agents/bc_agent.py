@@ -38,7 +38,8 @@ from manigaussian_tpu_torch.ops.rotation import discrete_euler_to_quaternion
 from manigaussian_tpu_torch.parallel.train_sharded import (average_gradients,
                                                            reduce_metrics)
 from manigaussian_tpu_torch.rendering.neural_renderer import RenderResult
-from manigaussian_tpu_torch.utils.device import DeviceLike, resolve_device
+from manigaussian_tpu_torch.utils.device import (DeviceLike, constant,
+                                                 resolve_device)
 from manigaussian_tpu_torch.utils.optimizers import (AdamW, Lamb,
                                                      warmup_cosine_schedule)
 from manigaussian_tpu_torch.utils.profiling import trace_annotation
@@ -260,8 +261,8 @@ class ManiGaussianBCAgent:
                     rot_grip[:, :3], float(m.rotation_resolution))
             with trace_annotation("policy/decode/action"):
                 bounds = self.bounds
-                vsize = torch.tensor(float(m.voxel_sizes[0]),
-                                     device=self.device)
+                vsize = constant(float(m.voxel_sizes[0]), torch.float32,
+                                 self.device)
                 res = (bounds[3:] - bounds[:3]) / vsize
                 # attention coordinate = voxel center (qattention:1120-1123)
                 attention_coord = (bounds[:3] + res * coords.to(torch.float32)

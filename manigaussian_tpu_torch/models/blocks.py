@@ -35,6 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from manigaussian_tpu_torch.ops.conv3d import conv3d_same_batched
+from manigaussian_tpu_torch.utils.device import constant
 
 LRELU_SLOPE = 0.02  # network_utils.py:14
 NORM_EPS = 1e-6     # flax.linen LayerNorm / GroupNorm default
@@ -333,7 +334,7 @@ class _SoftArgmaxMax(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, xf, pos, temperature):
-        t = torch.tensor(temperature, dtype=torch.float32, device=xf.device)
+        t = constant(temperature, torch.float32, xf.device)
         z = xf.float() / t
         m = z.amax(dim=1, keepdim=True)
         xmax = xf.amax(dim=1).float()

@@ -25,6 +25,7 @@ from torch import nn
 
 from manigaussian_tpu_torch.models.blocks import Dense
 from manigaussian_tpu_torch.ops.camera import world_to_canonical
+from manigaussian_tpu_torch.utils.device import constant
 
 SPLIT_DIMS = (3, 1, 3, 4, 3, 3, 9)  # Δxyz, opacity, scale, rot, sh_dc, embed, sh_rest
 MAX_SCALE = 0.05
@@ -51,7 +52,7 @@ def trilinear_sample(volume: torch.Tensor, coords: torch.Tensor) -> torch.Tensor
     indexes spatial axis i; align_corners=True) → [B, N, C] fp32; corners
     outside the grid count zero."""
     b = volume.shape[0]
-    dims = torch.tensor(volume.shape[1:4], dtype=torch.float32, device=volume.device)
+    dims = constant(tuple(volume.shape[1:4]), torch.float32, volume.device)
     dims_i = dims.long()
     pix = (coords + 1.0) * 0.5 * (dims - 1.0)
     lo_f = torch.floor(pix)
@@ -62,7 +63,7 @@ def trilinear_sample(volume: torch.Tensor, coords: torch.Tensor) -> torch.Tensor
     for dx in (0, 1):
         for dy in (0, 1):
             for dz in (0, 1):
-                off = torch.tensor([dx, dy, dz], device=volume.device)
+                off = constant((dx, dy, dz), torch.int64, volume.device)
                 corner = lo + off
                 w = torch.where(off == 1, frac, 1.0 - frac).prod(dim=-1)
                 inside = ((corner >= 0) & (corner < dims_i)).all(dim=-1)

@@ -43,6 +43,7 @@ from manigaussian_tpu_torch.models.blocks import (ChannelProjectConv3D,
 from manigaussian_tpu_torch.models.unet3d import VoxelUNetShallow
 from manigaussian_tpu_torch.ops.flash_attention import flash_self_attention
 from manigaussian_tpu_torch.parallel.distributed import Rows, global_draw
+from manigaussian_tpu_torch.utils.device import constant
 from manigaussian_tpu_torch.utils.profiling import trace_annotation
 
 
@@ -92,8 +93,7 @@ class Attention(nn.Module):
                 dropout_rate=rate, dropout_seed=seed, block_q=bq,
                 bh_offset=rows.lo * self.heads if rows else 0)
         else:
-            scale = torch.tensor(self.dim_head ** -0.5, dtype=q.dtype,
-                                 device=q.device)
+            scale = constant(self.dim_head ** -0.5, q.dtype, q.device)
             logits = torch.matmul((q * scale).float(),
                                   k.float().transpose(-1, -2))
             attn = torch.softmax(logits, dim=-1)

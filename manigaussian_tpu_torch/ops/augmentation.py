@@ -19,6 +19,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from manigaussian_tpu_torch.ops import rotation as rot
+from manigaussian_tpu_torch.utils.device import constant
 
 MAX_ATTEMPTS = 10
 
@@ -56,7 +57,7 @@ def _unclamped_voxel_index(point, bounds, voxel_size: int):
     out-of-bounds perturbation shows. Divisions by tensors (true divisions,
     as in JAX)."""
     bb_min = bounds[..., :3]
-    c = lambda v: torch.tensor(v, dtype=torch.float32, device=point.device)
+    c = lambda v: constant(v, torch.float32, point.device)
     res = (bounds[..., 3:] - bb_min) / c(voxel_size + 1e-12)
     idx = torch.floor((point - bb_min) / (res + c(1e-12))).to(torch.int32)
     return torch.clamp(idx, max=voxel_size - 1)
@@ -79,11 +80,11 @@ def apply_se3_augmentation(draws: SE3Draws, pcd: torch.Tensor,
     dev = pcd.device
     b = action_gripper_pose.shape[0]
     bounds = bounds.to(torch.float32).reshape(-1, 6).expand(b, 6)
-    trans_range = (bounds[:, 3:] - bounds[:, :3]) * torch.tensor(
-        trans_aug_range, dtype=torch.float32, device=dev)          # [B, 3]
+    trans_range = (bounds[:, 3:] - bounds[:, :3]) * constant(
+        tuple(trans_aug_range), torch.float32, dev)                # [B, 3]
     trans_shift = trans_range[None] * draws.trans_unit.to(dev)     # [K, B, 3]
-    euler = draws.rot_steps.to(dev).float() * torch.tensor(
-        math.radians(rot_aug_resolution), dtype=torch.float32, device=dev)
+    euler = draws.rot_steps.to(dev).float() * constant(
+        math.radians(rot_aug_resolution), torch.float32, dev)
     rot_shift = rot.euler_to_matrix(euler, "XYZ")                  # [K, B, 3, 3]
 
     grip_rot = rot.quat_wxyz_to_matrix(

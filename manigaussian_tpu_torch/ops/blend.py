@@ -33,6 +33,7 @@ import torch
 
 from manigaussian_tpu_torch.ops import _cuda
 from manigaussian_tpu_torch.ops.voxelize import segment_sum
+from manigaussian_tpu_torch.utils.device import constant
 
 ALPHA_MAX = 0.99
 ALPHA_MIN = 1.0 / 255.0
@@ -84,7 +85,7 @@ def blend_tiles_reference(counts: torch.Tensor, origins: torch.Tensor,
     mono = _pixel_monomials(tile, dev)                            # [P, 6]
     ox, oy = origins[:, 0:1], origins[:, 1:2]                     # [T, 1]
     count = counts.reshape(t, 1)
-    alpha_max = torch.tensor(ALPHA_MAX, dtype=torch.float32, device=dev)
+    alpha_max = constant(ALPHA_MAX, torch.float32, dev)
 
     zeros = attrs.new_zeros(t, p)
     log_t_raw, log_t_final = zeros, zeros

@@ -36,6 +36,7 @@ from typing import Optional, Tuple
 import torch
 
 from manigaussian_tpu_torch.ops import _cuda
+from manigaussian_tpu_torch.utils.device import constant
 
 # head dims with an instantiation in csrc/flash_attention.cu (the bf16
 # tensor-core path needs multiples of 16)
@@ -163,7 +164,7 @@ def flash_self_attention_reference(q: torch.Tensor, k: torch.Tensor,
     """
     b, h, n, d = q.shape
     scale = d ** -0.5
-    qs = q * torch.tensor(scale, dtype=q.dtype, device=q.device)
+    qs = q * constant(scale, q.dtype, q.device)
     s = torch.matmul(qs.float(), k.float().transpose(-1, -2))
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     p = p / p.sum(dim=-1, keepdim=True)
@@ -171,8 +172,8 @@ def flash_self_attention_reference(q: torch.Tensor, k: torch.Tensor,
         keep = dropout_keep_mask(dropout_seed, dropout_rate, b * h, n,
                                  block_q, q.device,
                                  bh_offset).reshape(b, h, n, n)
-        p = p * keep.float() * torch.tensor(
-            1.0 / (1.0 - dropout_rate), dtype=torch.float32, device=q.device)
+        p = p * keep.float() * constant(1.0 / (1.0 - dropout_rate),
+                                        torch.float32, q.device)
     out = torch.matmul(p.to(v.dtype).float(), v.float())
     return out.to(q.dtype)
 

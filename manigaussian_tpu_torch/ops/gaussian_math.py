@@ -15,6 +15,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from manigaussian_tpu_torch.utils.device import constant
+
 SH_C0 = 0.28209479177387814
 SH_C1 = 0.4886025119029199
 SH_C2 = (1.0925484305920792, -1.0925484305920792, 0.31539156525252005,
@@ -183,7 +185,7 @@ def preprocess(means3d: torch.Tensor, opacities: torch.Tensor, camera,
     cov3d6 = build_cov3d(scales, rotations, scale_modifier)
     focal_x = width / (2.0 * camera.tan_fovx)
     focal_y = height / (2.0 * camera.tan_fovy)
-    safe = torch.tensor([0.0, 0.0, 1.0], dtype=p_view.dtype, device=p_view.device)
+    safe = constant((0.0, 0.0, 1.0), p_view.dtype, p_view.device)
     p_view_safe = torch.where(in_front[..., None], p_view, safe)
     cov2d = project_cov2d(p_view_safe, cov3d6,
                           camera.world_view_transform[..., :3, :3].transpose(-1, -2),

@@ -14,6 +14,7 @@ import torch
 
 from manigaussian_tpu_torch.ops.gaussian_math import \
     quat_to_rotmat as quat_wxyz_to_matrix
+from manigaussian_tpu_torch.utils.device import constant
 
 
 def normalize_quaternion(q: torch.Tensor) -> torch.Tensor:
@@ -112,7 +113,6 @@ def discrete_euler_to_quaternion(disc: torch.Tensor,
                                  resolution: float) -> torch.Tensor:
     """Inverse codec → quaternion xyzw (helpers/utils.py:76-78)."""
     deg = disc.to(torch.float32) * resolution - 180.0
-    euler = deg * torch.tensor(math.pi / 180.0, dtype=torch.float32,
-                               device=deg.device)
+    euler = deg * constant(math.pi / 180.0, torch.float32, deg.device)
     rot = euler_xyz_extrinsic_to_matrix(euler)
     return quat_wxyz_to_xyzw(matrix_to_quat_wxyz(rot))

@@ -16,8 +16,11 @@ Two choices keep it equal to the JAX function:
     order that changes from run to run on CUDA, so the points are sorted by
     cell (stable, so each cell sums its points in their original order, as
     JAX's sequential segment_sum does on the CPU) and each cell's run is
-    reduced by `torch.segment_reduce`, with per-cell lengths from an
-    integer `bincount`.
+    reduced by `torch.segment_reduce`, over the runs that a binary search
+    of the sorted indices bounds (`bincount` would size its output from the
+    indices' largest, read back to the host).
+The divisors are device constants made once (`utils.device.constant`), so
+an act on the GPU copies nothing from the host here.
 """
 
 from __future__ import annotations
@@ -25,6 +28,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from manigaussian_tpu_torch.utils.device import constant
 
 MIN_DENOMINATOR = 1e-12
 
@@ -35,9 +40,18 @@ def segment_sum(rows: torch.Tensor, index: torch.Tensor, n: int) -> torch.Tensor
     run, so every sum has a fixed order (`index_add_` accumulates with
     atomics on CUDA, in an order that changes from run to run)."""
     order = torch.argsort(index, stable=True)
-    lengths = torch.bincount(index, minlength=n)
-    return torch.segment_reduce(rows[order], "sum", lengths=lengths, axis=0,
-                                unsafe=True)
+    return torch.segment_reduce(rows[order], "sum",
+                                offsets=segment_offsets(index[order], n),
+                                axis=0, unsafe=True)
+
+
+def segment_offsets(sorted_index: torch.Tensor, n: int) -> torch.Tensor:
+    """Where each index's run starts in `sorted_index` (ascending, in
+    [0, n)), and where the last run ends: [n + 1], so that the differences
+    are `torch.bincount(sorted_index, minlength=n)`. A binary search on the
+    device; on CUDA `bincount` reads the largest index back to the host."""
+    return torch.searchsorted(
+        sorted_index, torch.arange(n + 1, device=sorted_index.device))
 
 
 def voxelize(coords: torch.Tensor, coord_features: Optional[torch.Tensor],
@@ -54,10 +68,11 @@ def voxelize(coords: torch.Tensor, coord_features: Optional[torch.Tensor],
         bounds = bounds[None].expand(b, 6)
     bb_mins = bounds[:, None, 0:3]
     bb_ranges = bounds[:, None, 3:6] - bb_mins
-    res = bb_ranges / torch.tensor(float(voxel_size) + MIN_DENOMINATOR, **f32)
+    res = bb_ranges / constant(float(voxel_size) + MIN_DENOMINATOR,
+                               torch.float32, dev)
     bb_mins_shifted = bb_mins - res  # one-cell border (voxel_grid.py:179)
 
-    eps = torch.tensor(MIN_DENOMINATOR, **f32)
+    eps = constant(MIN_DENOMINATOR, torch.float32, dev)
     floor = torch.floor((coords - bb_mins_shifted) / (res + eps))
     idx = torch.clamp(floor.to(torch.int32), 0, dims - 1).long()   # [B, N, 3]
 
@@ -82,7 +97,7 @@ def voxelize(coords: torch.Tensor, coord_features: Optional[torch.Tensor],
     vs = voxel_size
     ar = torch.arange(vs, **f32)
     index_grid = torch.stack(torch.meshgrid(ar, ar, ar, indexing="ij"),
-                             dim=-1) / torch.tensor(float(vs), **f32)
+                             dim=-1) / constant(float(vs), torch.float32, dev)
     index_grid = index_grid[None].expand(b, vs, vs, vs, 3)
 
     return torch.cat([grid[..., :-1], index_grid, occupied], dim=-1)

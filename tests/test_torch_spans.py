@@ -7,9 +7,18 @@ running no range is entered; the ranges change no result; and each range
 is small enough for the benchmark's trace reduction (`benchmark/trace.py`
 looks back at most 400 host events for the innermost range open at a
 device idle gap) to place every gap inside it.
+
+The act is also free of host-device synchronisation after its inputs: no
+op that on CUDA copies from pageable host memory or reads a device value
+back (`torch.tensor` of a host scalar, `bincount`, `.item()`, `nonzero`)
+runs between `policy/inputs` and the result, counted here in the CPU
+profile and, on the card (marked `gpu`), under CUDA's sync debug mode. The
+configuration's constants come from `utils.device.constant`, made once,
+and give the bits that a tensor made on every call gives.
 """
 
 import dataclasses
+import sys
 
 import numpy as np
 import pytest
@@ -18,6 +27,8 @@ from torch.profiler import ProfilerActivity, profile, record_function
 
 from manigaussian_tpu_torch import config as C
 from manigaussian_tpu_torch.agents.bc_agent import ManiGaussianBCAgent
+from manigaussian_tpu_torch.ops import voxelize as voxelize_module
+from manigaussian_tpu_torch.utils import device as device_module
 from manigaussian_tpu_torch.utils import profiling
 
 ACT_STAGES = ("policy/inputs", "policy/voxelize", "policy/encoder",
@@ -26,6 +37,10 @@ SHARED_STAGES = ACT_STAGES[1:5]
 # benchmark/trace.py: how far back it looks for the range open at a gap
 TRACE_LOOKBACK = 400
 CALL = "test/call"
+# ATen ops that synchronise the host with a CUDA stream: `torch.tensor` of
+# a host value (a pageable copy), and reads of a device value by the host
+SYNCING_OPS = ("aten::lift_fresh", "aten::bincount",
+               "aten::_local_scalar_dense", "aten::item", "aten::nonzero")
 
 
 def micro_cfg(policy_dtype="float32"):
@@ -167,3 +182,89 @@ def test_every_op_is_near_its_innermost_range(policy_dtype, obs):
         worst[inner.name] = max(worst.get(inner.name, 0), back)
     assert {"/".join(n.split("/")[:2]) for n in worst} == set(ACT_STAGES)
     assert max(worst.values()) < TRACE_LOOKBACK * 0.9, worst
+
+
+@pytest.mark.parametrize("policy_dtype", ["float32", "bfloat16"])
+def test_act_does_not_sync_after_its_inputs(policy_dtype, obs):
+    agent = ManiGaussianBCAgent(micro_cfg(policy_dtype), device="cpu",
+                                seed=3)
+    agent.act(obs)
+    events = profiled(lambda: agent.act(obs))
+    inputs = [e for e in events if e.name == "policy/inputs"]
+    assert len(inputs) == 1
+    syncing = [e.name for e in events if e.name in SYNCING_OPS
+               and not within(e, inputs[0])]
+    assert syncing == []
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("policy_dtype", ["float32", "bfloat16"])
+def test_act_does_not_sync_on_cuda(policy_dtype, obs):
+    """The observation already on the card, so that `policy/inputs` copies
+    nothing: any synchronising call of the act then raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; runs on the card")
+    cfg = micro_cfg(policy_dtype)
+    # the bf16 flash kernel's least head dim
+    cfg = dataclasses.replace(cfg, method=dataclasses.replace(
+        cfg.method, latent_dim_head=16))
+    agent = ManiGaussianBCAgent(cfg, device="cuda", seed=3)
+    on_card = {k: torch.as_tensor(v, device="cuda") for k, v in obs.items()}
+    first = agent.act(on_card)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = agent.act(on_card)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for name, a, b in zip(first._fields, first, again):
+        assert torch.equal(a, b), name
+
+
+def test_constant_is_made_once_per_value_dtype_and_device():
+    c = device_module.constant
+    a = c(0.125, torch.float32, "cpu")
+    assert a.shape == () and a.dtype == torch.float32 and float(a) == 0.125
+    assert c(0.125, torch.float32, torch.device("cpu")) is a
+    assert c(0.125, torch.bfloat16, "cpu") is not a
+    assert c(0.125, torch.bfloat16, "cpu").dtype == torch.bfloat16
+    assert c(0.25, torch.float32, "cpu") is not a
+    # equal under ==, other bits or another type
+    assert torch.signbit(c(-0.0, torch.float32, "cpu"))
+    assert not torch.signbit(c(0.0, torch.float32, "cpu"))
+    assert c(2, torch.int64, "cpu") is not c(2.0, torch.int64, "cpu")
+    v = c((0.0, 0.0, 1.0), torch.float32, "cpu")
+    assert v.tolist() == [0.0, 0.0, 1.0] and c((0.0, 0.0, 1.0),
+                                               torch.float32, "cpu") is v
+    with torch.inference_mode():
+        made_inside = c(0.375, torch.float32, "cpu")
+    assert not made_inside.is_inference()
+
+
+def _segment_sum_by_bincount(rows, index, n):
+    order = torch.argsort(index, stable=True)
+    return torch.segment_reduce(rows[order], "sum",
+                                lengths=torch.bincount(index, minlength=n),
+                                axis=0, unsafe=True)
+
+
+@pytest.mark.parametrize("policy_dtype", ["float32", "bfloat16"])
+def test_act_is_bitwise_the_per_call_formula(policy_dtype, obs, monkeypatch):
+    """Against the act with every constant made anew on each call and the
+    voxelizer's counts from `bincount`, from the same seed."""
+    agent = ManiGaussianBCAgent(micro_cfg(policy_dtype), device="cpu",
+                                seed=3)
+    hoisted = agent.act(obs)
+    fresh = lambda value, dtype, device: torch.tensor(value, dtype=dtype,
+                                                      device=device)
+    users = [m for name, m in sys.modules.items()
+             if name.startswith("manigaussian_tpu_torch.")
+             and getattr(m, "constant", None) is device_module.constant]
+    assert len(users) >= 5
+    for m in users:
+        monkeypatch.setattr(m, "constant", fresh)
+    monkeypatch.setattr(voxelize_module, "segment_sum",
+                        _segment_sum_by_bincount)
+    per_call = agent.act(obs)
+    for name, a, b in zip(hoisted._fields, hoisted, per_call):
+        assert a.dtype == b.dtype and torch.equal(a, b), name
