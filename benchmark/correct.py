@@ -17,9 +17,10 @@ under softmax) are left out.
           steps
   render  the first step's widest relative gap of the render losses
           (`rgb_loss`; the semantic tiers' `embed_loss`; the dynamic tiers'
-          `dyna_loss`, the next frame's render; both sides start from the
-          same weights), over the witness's or `RENDER_FLOOR`, whichever is
-          larger
+          `dyna_loss`, the next frame's render; GNFactor's NeRF: `rgb_loss`
+          and `embed_loss`, each its coarse and fine pass's; both sides
+          start from the same weights), over the witness's or
+          `RENDER_FLOOR`, whichever is larger
   gt_embed  the semantic tiers' GT embedding, which the program works out
           in its prefetch thread and the reference again from the same
           views: the worst followed step's gap after aligning the channels
@@ -32,7 +33,7 @@ and renderer gaps themselves (`render_gap`, `grad_renderer_gap` and the
 witness's `_bf16`), the GT embedding's gap without alignment
 (`gt_embed_plain`), and `grad_renderer`: the median gap of the renderer's
 leaves' first gradient (the Gaussian regressor and the deformation field,
-against their own median leaf) over the witness's or `RENDERER_FLOOR`,
+or the NeRF's MLP, against their own median leaf) over the witness's or `RENDERER_FLOOR`,
 whichever is larger.
 
 Act (`action_gap`): for every act of the window the reference's Q-values
@@ -50,7 +51,8 @@ from typing import Dict, List, Sequence
 LOSS_HEADS = ("trans_loss", "rot_loss", "grip_loss", "collision_loss",
               "rgb_loss", "embed_loss", "dyna_loss")
 RENDER_HEADS = ("rgb_loss", "embed_loss", "dyna_loss")
-# the leaves of the Gaussian regressor and the deformation field
+# the leaves of the Gaussian regressor and the deformation field, or of
+# GNFactor's NeRF
 RENDERER_PREFIX = "neural_renderer."
 # gaps under these are rounding: the witness's gap is not read below them
 # (where the render hardly depends on the policy's precision both sides'

@@ -5,6 +5,10 @@ port's own code for as long as it is planted:
   render       this frame's splat render with the lower half of its rows
                left at the background, as a blend that skips half its tiles
   next_render  the same in the next frame's render (the dynamic tiers)
+  nerf_render  the NeRF's fine pass with the colour of every other ray left
+               at the other background (white for black), as a composite
+               that skips rays over a buffer cleared to the wrong colour
+               (GNFactor)
   gt_embed     the semantic tower's GT embedding with its rows and columns
                swapped, as a layout mixed up between the tower and the loss
 """
@@ -13,7 +17,7 @@ from __future__ import annotations
 
 import contextlib
 
-FAULTS = ("render", "next_render", "gt_embed")
+FAULTS = ("render", "next_render", "nerf_render", "gt_embed")
 
 
 def _half_rows(color):
@@ -46,6 +50,26 @@ def planted(name: str):
             yield
         finally:
             N.forward, N._render = forward, render
+    elif name == "nerf_render":
+        from manigaussian_tpu_torch.rendering.nerf_renderer import \
+            GNFactorNeRFRenderer as G
+        render_rays = G.render_rays
+
+        def broken_render_rays(self, *a, **k):
+            coarse, fine = render_rays(self, *a, **k)
+            # not the background, so that the fault shows whether the ray
+            # hits something or nothing
+            other = 0.0 if self.white_bkgd else 1.0
+            keep = fine.rgb.new_ones(fine.rgb.shape[:-1] + (1,))
+            keep[:, 1::2] = 0.0
+            return coarse, fine._replace(
+                rgb=fine.rgb * keep + other * (1 - keep))
+
+        G.render_rays = broken_render_rays
+        try:
+            yield
+        finally:
+            G.render_rays = render_rays
     elif name == "gt_embed":
         import numpy as np
 

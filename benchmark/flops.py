@@ -3,12 +3,14 @@ configuration's shapes (never from what the program runs), and the H100's
 published peaks.
 
 `model_flops` counts the trained model's matrix products — the policy
-(3D U-Net, Perceiver IO, the 100³ convs and heads), the Gaussian regressor
-and the deformation field — by running this folder's plain reference of
-them on the meta device under `torch.utils.flop_counter.FlopCounterMode`:
-2·M·N·K a product, a convolution as its implicit product; the backward's
-dX and dW products where training. The splat renderer and the norms are
-not counted. `flash_bound_s` is the least time of the policy's flash
+(3D U-Net, Perceiver IO, the 100³ convs and heads) and, in training, the
+Gaussian regressor and the deformation field, or for `renderer_type`
+"nerf" the NeRF's ResnetFC over the coarse and the fine pass's points — by
+running this folder's plain reference of them on the meta device under
+`torch.utils.flop_counter.FlopCounterMode`: 2·M·N·K a product, a
+convolution as its implicit product; the backward's dX and dW products
+where training. The splat renderer, the NeRF's sampling and compositing,
+and the norms are not counted. `flash_bound_s` is the least time of the policy's flash
 self-attention per call, from its operations, its dropout mask's integer
 work and its bytes.
 """
@@ -64,19 +66,23 @@ def model_flops(cfg, training: bool) -> float:
     from torch.utils.flop_counter import FlopCounterMode
 
     from .reference.gaussian_regressor import GeneralizableGSEmbedNet
-    from .reference.qfunction import perceiver_from_config
+    from .reference.qfunction import perceiver_from_config, \
+        renderer_from_config
 
     m = cfg.method
     r = m.neural_renderer
     v = m.voxel_sizes[0]
     hw = cfg.rlbench.camera_resolution
+    renders = training and m.use_neural_rendering
+    nerf = renders and r.renderer_type == "nerf"
     with torch.device("meta"):
         policy = perceiver_from_config(m)
         regressor = (GeneralizableGSEmbedNet(
             coordinate_bounds=tuple(r.coordinate_bounds), d_latent=r.d_latent,
             use_dynamic_field=r.use_dynamic_field,
             use_semantic_feature=r.foundation_model_name == "diffusion")
-            if training and m.use_neural_rendering else None)
+            if renders and not nerf else None)
+        mlp = renderer_from_config(m).nerf.mlp if nerf else None
         grid = torch.zeros(1, v, v, v, 10)
         proprio = torch.zeros(1, 4)
         lang_emb = torch.zeros(1, m.language_model_dim * 2)
@@ -91,9 +97,30 @@ def model_flops(cfg, training: bool) -> float:
         if regressor is not None:
             params = regressor(xyz, d0, action=action)
             loss = loss + sum(t.sum() for t in _leaves(params))
+        if mlp is not None:
+            loss = loss + _nerf_points(mlp, d0, r).sum()
         if training:
             loss.backward()
     return float(counter.get_total_flops())
+
+
+def nerf_points(r) -> int:
+    """Points the NeRF's MLP runs on a step at batch 1: each of the chunk's
+    rays through the coarse pass's samples, then the fine pass's sorted
+    union of the coarse, importance and depth-guided samples."""
+    return r.ray_chunk_size * (r.n_coarse + r.n_coarse + r.n_fine)
+
+
+def _nerf_points(mlp, d0, r):
+    """The ResnetFC over every point of a step: the latent taken from d0
+    (so its gradient reaches the policy, as the trilinear gather's does),
+    the point code beside it without one (3 + 36 + 3 channels)."""
+    import torch
+    p = nerf_points(r)
+    latent = d0.reshape(1, -1, d0.shape[-1])[:, :1].float().expand(
+        1, p, d0.shape[-1])
+    code = latent.new_zeros(1, p, mlp.lin_in.weight.shape[1])
+    return mlp(torch.cat([latent, code], dim=-1))
 
 
 def _leaves(params):

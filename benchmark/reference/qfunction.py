@@ -1,7 +1,8 @@
 """QFunction, plain PyTorch: a frozen copy of the port's
-`agents/qfunction.py` without the NeRF branch and the multi-device paths.
-voxelize → Perceiver Q-heads → (auxiliary) Gaussian-splat rendering. `m`
-is the configuration's `method` group as attributes
+`agents/qfunction.py` without the multi-device paths and the NeRF's
+full-image render. voxelize → Perceiver Q-heads → (auxiliary) Gaussian-splat
+rendering, or GNFactor's NeRF on a random ray chunk (`renderer_type`
+"nerf"). `m` is the configuration's `method` group as attributes
 (`benchmark.harness.namespace`); `compute` replaces its policy dtype.
 """
 
@@ -14,6 +15,7 @@ from torch import nn
 
 from .perceiver import PerceiverVoxelLangEncoder
 from .voxelize import voxelize
+from .nerf_renderer import GNFactorNeRFRenderer
 from .neural_renderer import (NeuralRenderer,
                                                               RenderLosses,
                                                               RenderResult)
@@ -71,8 +73,20 @@ def perceiver_from_config(m, compute=None) -> PerceiverVoxelLangEncoder:
 
 
 def renderer_from_config(m):
-    """The port's field mapping of the Gaussian renderer."""
+    """The port's field mapping of the Gaussian renderer, or of the NeRF
+    for `renderer_type` "nerf" (whose MLP reads `neural_renderer.mlp`)."""
     r = m.neural_renderer
+    if r.renderer_type == "nerf":
+        return GNFactorNeRFRenderer(
+            coordinate_bounds=tuple(r.coordinate_bounds),
+            image_width=r.image_width, image_height=r.image_height,
+            z_near=r.znear, z_far=r.zfar, n_coarse=r.n_coarse,
+            n_fine=r.n_fine, n_fine_depth=r.n_fine_depth,
+            depth_std=r.depth_std, ray_chunk_size=r.ray_chunk_size,
+            d_latent=r.d_latent, d_embed=r.d_embed, d_hidden=r.mlp.d_hidden,
+            n_blocks=r.mlp.n_blocks, combine_layer=r.mlp.combine_layer,
+            lambda_rgb=r.lambda_rgb, lambda_embed=r.lambda_embed,
+            noise_std=r.noise_std, white_bkgd=r.white_bkgd)
     if r.renderer_type != "gaussian":
         raise ValueError(f"unknown renderer_type {r.renderer_type!r}")
     return NeuralRenderer(
@@ -112,7 +126,12 @@ class QFunction(nn.Module):
             voxel_grid, proprio, lang_goal_emb, lang_token_embs,
             deterministic=deterministic, generator=generator)
         render_losses = render_result = None
-        if use_neural_rendering and self.neural_renderer is not None:
+        if (use_neural_rendering
+                and isinstance(self.neural_renderer, GNFactorNeRFRenderer)):
+            render_losses = self._nerf_losses(
+                d0, nerf_target_rgb, nerf_target_pose, nerf_target_intrinsic,
+                gt_embed, not deterministic, generator)
+        elif use_neural_rendering and self.neural_renderer is not None:
             # front camera only (qattention:252-258)
             front_pcd = pcd[:, 0].reshape(pcd.shape[0], -1, 3)
             render_losses, render_result = self.neural_renderer(
@@ -125,3 +144,25 @@ class QFunction(nn.Module):
                 training=nerf_target_rgb is not None)
         return QOutput(q_trans, q_rot_grip, q_coll, voxel_grid,
                        render_losses, render_result)
+
+    def _nerf_losses(self, d0, gt_rgb, gt_pose, gt_intrinsic, gt_embed,
+                     training: bool, generator):
+        """The GNFactor auxiliary loss on a random ray chunk against the
+        target view, as the splat path's RenderLosses: `loss_rgb` and
+        `loss_embed` each the coarse plus the fine term, `loss_dyna` 0; the
+        draws from `generator`. Without `gt_embed` a zero embedding stands
+        in and the embed terms stay out of the loss."""
+        renderer = self.neural_renderer
+        have_embed = gt_embed is not None
+        if not have_embed:
+            gt_embed = gt_rgb.new_zeros(*gt_rgb.shape[:3], renderer.d_embed)
+        nl = renderer(d0, gt_rgb, gt_pose, gt_intrinsic, gt_embed, generator,
+                      training=training)
+        zero = nl.loss.new_zeros(())
+        loss_rgb = nl.loss_rgb_coarse + nl.loss_rgb_fine
+        return RenderLosses(
+            loss=nl.loss if have_embed else loss_rgb, loss_rgb=loss_rgb,
+            loss_embed=(nl.loss_embed_coarse + nl.loss_embed_fine
+                        if have_embed else zero),
+            loss_dyna=zero, psnr=nl.psnr, overflow_splats=zero,
+            overflow_gaussians=zero)

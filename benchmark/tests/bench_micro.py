@@ -1,6 +1,7 @@
 """A micro copy of the benchmark's data files for the CPU tests: the
-published configurations cut to tiny widths, the traffic to 32x32 frames
-and 5 NeRF views, in a directory laid out as a checkout
+published configurations cut to tiny widths (the NeRF to 32 rays of 8
+coarse and 14 fine samples), the traffic to 32x32 frames and 5 NeRF views,
+in a directory laid out as a checkout
 (`<tmp>/BENCHMARK.json`, `<tmp>/benchmark/...`)."""
 
 from __future__ import annotations
@@ -18,7 +19,9 @@ MICRO = {"method": {"voxel_sizes": [20], "num_latents": 32, "latent_dim": 32,
                         "image_width": 32, "image_height": 32, "d_latent": 16,
                         "tile_capacity": 512, "max_tiles_per_gaussian": 8,
                         "chunk": 32, "mlp": {"n_blocks": 2, "d_hidden": 32},
-                        "next_mlp": {"n_blocks": 2, "d_hidden": 32}}},
+                        "next_mlp": {"n_blocks": 2, "d_hidden": 32},
+                        "n_coarse": 8, "n_fine": 6, "n_fine_depth": 2,
+                        "ray_chunk_size": 32}},
          "rlbench": {"camera_resolution": [32, 32]}}
 # the SD VAE's input side on the CPU (512 on the card)
 FEATURE_HW = 64

@@ -22,7 +22,8 @@ def base(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("entry,cell", [(train_entry, "w_geo.train"),
-                                        (act_entry, "w_geo.act")])
+                                        (act_entry, "w_geo.act"),
+                                        (train_entry, "gnfactor_bc.train")])
 def test_control_fails_and_program_passes(entry, cell, base):
     ctx = context(base, cell)
     limits = ctx.workload["limits"]

@@ -1,7 +1,7 @@
 """The output check fails a run whose timed path is broken underneath:
 a training step that leaves the state unchanged; a splat render, the next
-frame's render or the semantic tower's GT embedding gone wrong
-(`faults.py`); an act whose answer is altered where it is produced. The
+frame's render, the NeRF's fine pass or the semantic tower's GT embedding
+gone wrong (`faults.py`); an act whose answer is altered where it is produced. The
 harness's look for a chip is skipped; the rest of a run goes as on the
 card, at micro widths on the CPU, with the cells' own limits."""
 
@@ -20,18 +20,25 @@ def base(tmp_path, monkeypatch):
     return micro_base(str(tmp_path / "copy"))
 
 
-@pytest.mark.parametrize("cell", ["w_geo.train", "w_geo_sem_dyna.train"])
+@pytest.mark.parametrize("cell", ["w_geo.train", "w_geo_sem_dyna.train",
+                                  "gnfactor_bc.train"])
 def test_sound_training_run_is_correct(cell, base):
     fields, _ = R.run_cell(context(base, cell), base)
     assert fields["correct"]
 
 
-@pytest.mark.parametrize("fault,caught_by", [("next_render", "render"),
-                                             ("gt_embed", "gt_embed")])
-def test_render_or_embedding_gone_wrong(fault, caught_by, base):
+@pytest.mark.parametrize("cell,fault,caught_by", [
+    pytest.param("w_geo_sem_dyna.train", "next_render", "render",
+                 id="next_render-render"),
+    pytest.param("w_geo_sem_dyna.train", "gt_embed", "gt_embed",
+                 id="gt_embed-gt_embed"),
+    pytest.param("gnfactor_bc.train", "nerf_render", "render",
+                 id="gnfactor_bc-nerf_render-render"),
+    pytest.param("gnfactor_bc.train", "gt_embed", "gt_embed",
+                 id="gnfactor_bc-gt_embed-gt_embed")])
+def test_render_or_embedding_gone_wrong(cell, fault, caught_by, base):
     with planted(fault):
-        fields, checks = R.run_cell(context(base, "w_geo_sem_dyna.train"),
-                                    base)
+        fields, checks = R.run_cell(context(base, cell), base)
     assert not fields["correct"]
     numbers = {n: v for n, v, _ in checks}
     limits = {n: lim for n, _, lim in checks}

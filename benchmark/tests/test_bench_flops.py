@@ -55,3 +55,34 @@ def test_meta_count_equals_real_tensors_at_micro_width():
                      torch.randn(1, 77, m.language_model_dim))
     assert counter.get_total_flops() == flops.model_flops(cfg, training=False)
     assert out[0].shape == (1, v, v, v, 1)
+
+
+def test_nerf_count_by_hand():
+    """GNFactor's step counts the NeRF's ResnetFC over 512 rays × (64
+    coarse + 96 fine) points, forward, dX and dW (3 × the forward), in
+    place of the Gaussian regressor: lin_in 42→512, three lin_z 128→512,
+    five blocks of two 512→512, lin_out 512→7."""
+    cfg = _cfg("gnfactor_bc")
+    r = cfg.method.neural_renderer
+    points = r.ray_chunk_size * (2 * r.n_coarse + r.n_fine)
+    assert points == 81920 == flops.nerf_points(r)
+    d = r.mlp.d_hidden
+    per_point = 2 * (42 * d + 3 * r.d_latent * d + 2 * r.mlp.n_blocks * d * d
+                     + d * (4 + r.d_embed))
+    no_render = harness.namespace(json.loads(json.dumps(
+        harness.load_json("configs", "gnfactor_bc")["config"])))
+    no_render.method.use_neural_rendering = False
+    assert flops.model_flops(cfg, training=True) - flops.model_flops(
+        no_render, training=True) == 3 * points * per_point
+    # the act renders nothing
+    assert flops.model_flops(cfg, training=False) == flops.model_flops(
+        _cfg(), training=False)
+
+
+@pytest.mark.parametrize("name,training,count", [
+    ("w_geo", False, 2910686014464), ("w_geo", True, 9006532970496),
+    ("w_geo_sem_dyna", True, 9287584892928)])
+def test_splat_counts_unchanged(name, training, count):
+    """The splat tiers' counts as before the NeRF was counted (`mfu.act`
+    in `w_geo.act` reads the same FLOPs)."""
+    assert flops.model_flops(_cfg(name), training=training) == count

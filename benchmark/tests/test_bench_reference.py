@@ -16,7 +16,8 @@ from benchmark.reference.agent import ReferenceAgent
 from benchmark.reference.blocks import FP8, cast
 
 
-@pytest.mark.parametrize("cell", ["w_geo.train", "w_geo_sem_dyna.train"])
+@pytest.mark.parametrize("cell", ["w_geo.train", "w_geo_sem_dyna.train",
+                                  "gnfactor_bc.train"])
 def test_training_steps_match_the_port(cell, tmp_path, monkeypatch):
     monkeypatch.setenv("TMPDIR", str(tmp_path / "tmp"))
     small_tower(monkeypatch)
