@@ -1,6 +1,7 @@
 """A micro copy of the benchmark's data files for the CPU tests: the
 published configurations cut to tiny widths (the NeRF to 32 rays of 8
-coarse and 14 fine samples), the traffic to 32x32 frames and 5 NeRF views,
+coarse and 14 fine samples, the GT embedding to 3 channels), the traffic
+to 32x32 frames and 5 NeRF views,
 in a directory laid out as a checkout
 (`<tmp>/BENCHMARK.json`, `<tmp>/benchmark/...`)."""
 
@@ -17,6 +18,7 @@ MICRO = {"method": {"voxel_sizes": [20], "num_latents": 32, "latent_dim": 32,
                     "latent_dim_head": 8, "final_dim": 16,
                     "neural_renderer": {
                         "image_width": 32, "image_height": 32, "d_latent": 16,
+                        "d_embed": 3,
                         "tile_capacity": 512, "max_tiles_per_gaussian": 8,
                         "chunk": 32, "mlp": {"n_blocks": 2, "d_hidden": 32},
                         "next_mlp": {"n_blocks": 2, "d_hidden": 32},

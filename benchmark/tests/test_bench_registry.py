@@ -75,7 +75,7 @@ def test_added_files_are_found_and_run(tmp_path, monkeypatch):
                                 base)
     assert fields["metrics"]["steps_traced.train"]["value"] == 1.0
     assert fields["attempted"] > 0
-    assert {c[0] for c in checks} == {"grad", "change", "render"}
+    assert {c[0] for c in checks} == {"attn", "change", "render"}
     assert fields["correct"]
 
 
@@ -113,48 +113,25 @@ def test_metric_without_workloads_follows_what_it_moves(tmp_path, monkeypatch):
             cell == "w_geo.act")
 
 
-# The entries that list the GNFactor cell (its files are in the folder
-# already), as they go into BENCHMARK.json when the cell is listed: the
-# configuration, the cell, `train_step_ms` and the training per-layer
-# metrics.
-LISTING = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                       "gnfactor_bc.train.listing.json")
-
-
-def _list_gnfactor(base: str) -> dict:
-    """The copy's BENCHMARK.json gains the listing's entries; returns
-    them."""
-    with open(LISTING) as f:
-        listing = json.load(f)
-    spec_path = os.path.join(os.path.dirname(base), "BENCHMARK.json")
-    with open(spec_path) as f:
-        spec = json.load(f)
-    for key, entries in listing.items():
-        spec[key].extend(entries)
-    with open(spec_path, "w") as f:
-        json.dump(spec, f)
-    return listing
-
-
 @pytest.mark.parametrize("trace", [False, True])
 def test_gnfactor_cell_runs_and_reports_its_metrics(trace, tmp_path,
                                                     monkeypatch):
-    """The GNFactor cell, once `BENCHMARK.json` lists it, runs on the CPU
-    with no edit to the harness: untraced it reports `train_step_ms` and
-    `setup_s`; traced, of its per-layer metrics those that a run without a
-    device has to read (the host's feed wait and the step's FLOPs over the
-    window's step time)."""
+    """The GNFactor cell as `BENCHMARK.json` lists it runs on the CPU:
+    untraced it reports `train_step_ms` and `setup_s`; traced, of its
+    per-layer metrics those that a run without a device has to read (the
+    host's feed wait and the step's FLOPs over the window's step time)."""
     monkeypatch.setenv("TMPDIR", str(tmp_path / "tmp"))
     small_tower(monkeypatch)
     base = micro_base(str(tmp_path / "copy"))
     cell = "gnfactor_bc.train"
-    listing = _list_gnfactor(base)
     assert harness.end_to_end_for(cell, base) == ["setup_s", "train_step_ms"]
     named = set(harness.metrics_for(cell, base))   # each has its reader
-    assert named == {e["name"] for e in listing["per_layer"]}
+    assert named == {e["name"] for e in harness.spec(base)["per_layer"]
+                     if cell in e.get("workloads", ())}
     fields, checks = R.run_cell(context(base, cell, trace=trace), base)
     assert fields["correct"], checks
-    assert {c[0] for c in checks} == {"grad", "change", "render", "gt_embed"}
+    assert {c[0] for c in checks} == {"attn", "attn_bwd", "lamb_step",
+                                      "change", "nerf_rays", "gt_embed"}
     if trace:
         assert {"feed_wait_ms.train", "mfu.train"} <= set(fields["metrics"])
         assert set(fields["metrics"]) <= named
