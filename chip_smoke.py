@@ -36,7 +36,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                    bf16 at ragged shapes and at the policy's two 100³ convs,
                    the resident scheme's plan (cluster size, clusters at
                    once, waves), with ptxas's registers and spill of the
-                   three wgmma kernels.
+                   three wgmma kernels; `lamb`: the multi-tensor LAMB
+                   kernel against its plain loop at `gnfactor_bc`'s 178
+                   leaves over three steps (m and v bit for bit, p within
+                   the card tests' tolerance).
                    Then time each kernel (the flash forward without and with
                    dropout, SDPA beside each at the same dropout rate,
                    unpinned and pinned to each of its backends, 3 rounds in
@@ -46,7 +49,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                    it); the
                    flash kernels, SDPA and the blend kernels on the device
                    reading (the summed durations of their device work under
-                   torch.profiler), the host loop's events beside it;
+                   torch.profiler), the host loop's events beside it; LAMB's
+                   kernel and loop on CUDA events around steps queued ahead
+                   of the device (`queued_ms`), the kernel failing under its bound;
                    `bench`: the port's bench twin (manigaussian_tpu_torch/
                    bench.py: 65,536 Gaussians, 128², K 8192, chunk 512, the
                    gradient of every input) on the kernel route: renders/s,
@@ -232,7 +237,10 @@ compares where the SD VAE's ground-truth embedding runs in `w_geo_sem_dyna`
 training (`embed_ab`: its prefetch thread on a stream of its own or on the
 default stream, the main thread, or no tower). `--step-times` times the
 one-process `w_geo` step and act at full width through `create_agent`,
-`update` and `act` only (`step_times`), for the same kind of A/B.
+`update` and `act` only (`step_times`), for the same kind of A/B. `--lamb-times`
+runs the LAMB phase alone (`phase_lamb`: the multi-tensor kernel against the
+plain loop at `gnfactor_bc`'s 178 leaves, device and host time, launches,
+the bound by bytes).
 
 Nothing of JAX is imported. Scratch files go under build/chip_smoke/ in the
 checkout. With no CUDA device, or without the package beside it, the script
@@ -2105,7 +2113,8 @@ def expected_launches(m, step: int) -> dict:
     backward once per self-attention layer; one render, and a second one of
     the next frame once the dynamic field's warm-up gate is open (none with
     GNFACTOR_BC's NeRF); with the conv kernels, the forward and dx of the two
-    full-resolution convs and one dW (workspace scheme) each."""
+    full-resolution convs and one dW (workspace scheme) each; with LAMB, its
+    two kernels (one group of leaves at every configuration)."""
     nr = m.neural_renderer
     renders = 2 if nr.use_dynamic_field and step >= nr.next_mlp.warm_up else 1
     if m.name == "GNFACTOR_BC":
@@ -2115,7 +2124,8 @@ def expected_launches(m, step: int) -> dict:
             "flash_self_attention_bwd": m.transformer_depth,
             "blend_fwd": renders, "blend_bwd": renders,
             "conv3d_fwd": 4 if pallas else 0, "conv3d_dw": 2 if pallas else 0,
-            "conv3d_dw_resident": 0}
+            "conv3d_dw_resident": 0,
+            "fused_lamb": 2 if m.optimizer == "lamb" else 0}
 
 
 def expected_vis_launches(m) -> dict:
@@ -2127,7 +2137,7 @@ def expected_vis_launches(m) -> dict:
             "flash_self_attention_bwd": 0,
             "blend_fwd": 0 if m.name == "GNFACTOR_BC" else 1, "blend_bwd": 0,
             "conv3d_fwd": 2 if m.policy_conv_impl == "pallas" else 0,
-            "conv3d_dw": 0, "conv3d_dw_resident": 0}
+            "conv3d_dw": 0, "conv3d_dw_resident": 0, "fused_lamb": 0}
 
 
 def timed_calls(fn, wall_ms: list, cpu_ms: list):
@@ -2922,6 +2932,182 @@ def gnf_steps(devices=("cuda", "cpu"), steps: int = 2) -> dict:
                     for dev, rows in out.items()},
         nerf_voxel_features=feats, ok=True)
     return out
+
+
+def queued_ms(fn, iters: int) -> float:
+    """Device reading of a call whose host side may be as slow as its device
+    work: CUDA events around `iters` calls that the host queued behind a
+    sleep kernel, so the device runs them back to back and never waits for
+    the host; ms a call. The sleep lasts twice the host's time for the
+    calls; if the first event had already passed when the host finished
+    queueing, the reading is taken again with a sleep twice as long."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    lead_ms = 2e3 * (time.perf_counter() - t0) + 5.0
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    for _ in range(4):
+        torch.cuda._sleep(int(lead_ms * 2e6))   # ≥ lead_ms at ≤ 2 GHz
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        queued = not start.query()
+        torch.cuda.synchronize()
+        if queued:
+            return start.elapsed_time(end) / iters
+        lead_ms *= 2
+    raise AssertionError("the host never got ahead of the device")
+
+
+def phase_lamb(rounds: int = 3, iters: int = 10) -> dict:
+    """The multi-tensor LAMB kernel (`Lamb.step` on the card, which every
+    LAMB training step of the port runs) against its plain loop
+    (`lamb_step_reference`: ~25 eager kernels a leaf, the CPU's route) at
+    `gnfactor_bc`'s leaves (the benchmark cell's configuration file: 178
+    float32 leaves, 40.06 M elements), random p and a fresh gradient a step.
+    Three steps of each from the same state: after each, m and v equal bit
+    for bit, and p within the card tests' tolerance (1e-5 of the summed
+    |Δp| plus 4 ulp of p). Then `rounds` rounds of loop, kernel, kernel,
+    loop, each over `iters` steps: kernels launched a step and the device
+    time a step from torch.profiler (`device_ms`: the kernels' mean record
+    duration times the kernels launched), and the host clock ending in a
+    synchronize; for the kernel also CUDA events around steps queued ahead
+    of the device (`queued_ms`, the record's `ms`). The bound: bytes, p, g,
+    m, v read and p, m, v written (28 B an element) at 3.35 TB/s; beside it
+    the two passes' 40 B an element. A kernel time under the bound fails the
+    phase."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from manigaussian_tpu_torch.agents.qfunction import QFunction
+    from manigaussian_tpu_torch.ops.fused_lamb import lamb_step_reference
+    from manigaussian_tpu_torch.utils.config_io import from_dict
+    from manigaussian_tpu_torch.utils.optimizers import Lamb
+
+    with open(os.path.join(ROOT, "benchmark", "configs",
+                           "gnfactor_bc.json")) as f:
+        cfg = from_dict(json.load(f)["config"])
+    with torch.device("meta"):
+        shapes = [p.shape for p in QFunction(cfg.method).parameters()]
+    lr, wd = cfg.method.lr, cfg.method.lambda_weight_l2
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    draw = lambda scale: [scale * torch.randn(s, generator=gen, device="cuda")
+                          for s in shapes]
+    p0 = draw(0.05)
+    opt = Lamb([p.clone() for p in p0], lr, weight_decay=wd)
+    ref = [p.clone() for p in p0]
+    mu, nu = ([torch.zeros_like(p) for p in p0] for _ in range(2))
+    loop = lambda: lamb_step_reference(ref, grads, mu, nu, lr, opt.b1,
+                                       opt.b2, opt.eps, wd)
+    ulp = lambda x: torch.nextafter(x.abs(), torch.full_like(x, np.inf)) - x.abs()
+    moved = [torch.zeros_like(p, dtype=torch.float64) for p in p0]
+    m_bitwise = v_bitwise = True
+    excess, gap = -np.inf, 0.0
+    for _ in range(3):
+        grads = draw(1e-2)
+        for p, g in zip(opt.params, grads):
+            p.grad = g
+        before = [p.clone() for p in ref]
+        opt.step()
+        loop()
+        m_bitwise &= all(torch.equal(a, b) for a, b in zip(opt.mu, mu))
+        v_bitwise &= all(torch.equal(a, b) for a, b in zip(opt.nu, nu))
+        for acc, a, b, q in zip(moved, opt.params, ref, before):
+            acc += (b.double() - q.double()).abs()
+            d = (a.double() - b.double()).abs()
+            excess = max(excess, float((d - 1e-5 * acc
+                                        - 4 * ulp(b).double()).max()))
+            gap = max(gap, float(d.max()))
+    check = {"steps": 3, "m_bitwise": m_bitwise, "v_bitwise": v_bitwise,
+             "p_max_abs_gap": gap, "p_excess_over_tolerance": excess,
+             "tolerance": "1e-5·Σ|Δp| + 4 ulp(p)"}
+    if not (m_bitwise and v_bitwise and excess <= 0.0):
+        log("lamb", check=check, ok=False)
+        raise AssertionError(f"LAMB kernel against the loop: {check}")
+
+    def profiled(fn) -> dict:
+        """Over `iters` calls: kernels launched a call (the profiler's
+        launch calls), and the device time a call as the mean duration of
+        the kernels' records times the kernels launched (the profiler may
+        drop some records of back-to-back sessions, never their
+        durations)."""
+        fn()
+        for _ in range(3):   # a session may come back without device records
+            torch.cuda.synchronize()
+            time.sleep(0.1)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+            events = prof.events()
+            rec = [e.time_range.elapsed_us() for e in events
+                   if e.device_type == DeviceType.CUDA
+                   and not e.name.startswith(("Memcpy", "Memset"))]
+            if rec:
+                break
+        launched = sum(e.device_type == DeviceType.CPU
+                       and e.name.startswith("cudaLaunchKernel")
+                       for e in events) or len(rec)
+        return {"kernels": launched / iters,
+                "device_ms": (sum(rec) / len(rec) / 1e3 * launched / iters
+                              if rec else None),
+                "records_kept": len(rec) / launched if launched else None}
+
+    def wall_ms(fn) -> float:
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / iters
+
+    runs = {"loop": [], "kernel": []}
+    for _ in range(rounds):
+        for name in ("loop", "kernel", "kernel", "loop"):
+            fn = opt.step if name == "kernel" else loop
+            row = {**profiled(fn), "wall_ms": wall_ms(fn)}
+            if name == "kernel":
+                # the loop's ~4,450 launches a step fill the device's launch
+                # queue, so only the kernel's steps queue up ahead
+                row["queued_ms"] = queued_ms(fn, iters)
+            runs[name].append(row)
+    med = lambda name, k: statistics.median(
+        r[k] for r in runs[name] if r[k] is not None)
+    numel = sum(int(np.prod(s)) for s in shapes)
+    bound_ms = 28 * numel / PEAK_BYTES * 1e3
+    rec = {"name": "fused_lamb", "route": "cuda",
+           "source": "manigaussian_tpu_torch/csrc/lamb.cu",
+           "replaces": None, "launches": None,
+           "max_abs_err": check["p_max_abs_gap"],
+           "leaves": len(shapes), "elements": numel,
+           "ms": med("kernel", "queued_ms"),
+           "device_ms": med("kernel", "device_ms"),
+           "host_ms": med("kernel", "wall_ms"),
+           "kernels_per_step": med("kernel", "kernels"),
+           "plain_ms": med("loop", "device_ms"),
+           "plain_host_ms": med("loop", "wall_ms"),
+           "plain_kernels_per_step": med("loop", "kernels"),
+           "library_ms": None,
+           "bound_ms": bound_ms, "bound_by": "bytes",
+           "two_pass_bytes_ms": 40 * numel / PEAK_BYTES * 1e3}
+    rec["factor_vs_bound"] = rec["ms"] / bound_ms
+    under = [r for r in runs["kernel"]
+             if min(r["queued_ms"], r["device_ms"] or np.inf) < bound_ms]
+    ok = not under
+    log("lamb", check=check, runs=runs, ok=ok, **rec)
+    if not ok:
+        raise AssertionError(f"LAMB kernel timed under its bound of "
+                             f"{bound_ms:.4f} ms: {under}")
+    return {"fused_lamb": rec}
 
 
 def embed_ab(rounds: int = 3, steps: int = 5) -> dict:
@@ -4465,10 +4651,11 @@ def phase_tools(counters: dict) -> dict:
 
 def main(argv) -> int:
     if argv not in ([], ["--flash-times"], ["--blend-times"], ["--embed-ab"],
-                    ["--conv-times"], ["--gnf-steps"], ["--step-times"]):
+                    ["--conv-times"], ["--gnf-steps"], ["--step-times"],
+                    ["--lamb-times"]):
         print(f"chip_smoke: unknown arguments {argv}; takes none, "
               "--flash-times, --blend-times, --conv-times, --embed-ab, "
-              "--gnf-steps or --step-times", file=sys.stderr)
+              "--gnf-steps, --step-times or --lamb-times", file=sys.stderr)
         return 2
     try:
         import torch
@@ -4487,6 +4674,7 @@ def main(argv) -> int:
                                                        conv3d_forward)
         from manigaussian_tpu_torch.ops.flash_attention import (
             flash_self_attention, flash_self_attention_backward)
+        from manigaussian_tpu_torch.ops.fused_lamb import FusedLamb
     except ImportError as e:
         print(f"chip_smoke: the port package is missing ({e}); run from the "
               "repository root", file=sys.stderr)
@@ -4500,7 +4688,8 @@ def main(argv) -> int:
                 "flash_self_attention_bwd": flash_self_attention_backward,
                 "blend_fwd": blend_forward, "blend_bwd": blend_backward,
                 "conv3d_fwd": conv3d_forward, "conv3d_dw": conv3d_dw_workspace,
-                "conv3d_dw_resident": conv3d_dw_resident}
+                "conv3d_dw_resident": conv3d_dw_resident,
+                "fused_lamb": FusedLamb}
 
     if argv == ["--flash-times"]:
         # the flash kernels' times alone, for an A/B of two checkouts in one
@@ -4533,9 +4722,15 @@ def main(argv) -> int:
         phase_build()
         gnf_steps()
         return 0
+    if argv == ["--lamb-times"]:
+        # the LAMB kernel against the plain loop at gnfactor_bc's leaves
+        phase_build()
+        phase_lamb()
+        return 0
     t_start = time.time()
     phase_build()
-    records = {**phase_flash(), **phase_blend(), **phase_conv()}
+    records = {**phase_flash(), **phase_blend(), **phase_conv(),
+               **phase_lamb()}
     bn = phase_bench(counters)
     phase_small()
     phase_small_train(counters)

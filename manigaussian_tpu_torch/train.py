@@ -218,7 +218,8 @@ def _run_seed(args, cfg, seed, device=None, mesh=None, tile_mesh=None):
 
 def kernel_launches() -> dict:
     """The kernel wrappers' launch counters (each counts its launches)."""
-    from manigaussian_tpu_torch.ops import blend, conv3d, flash_attention
+    from manigaussian_tpu_torch.ops import (blend, conv3d, flash_attention,
+                                            fused_lamb)
     return {"flash_self_attention_fwd":
             flash_attention.flash_self_attention.launches,
             "flash_self_attention_bwd":
@@ -227,7 +228,8 @@ def kernel_launches() -> dict:
             "blend_bwd": blend.blend_backward.launches,
             "conv3d_fwd": conv3d.conv3d_forward.launches,
             "conv3d_dw": conv3d.conv3d_dw_workspace.launches,
-            "conv3d_dw_resident": conv3d.conv3d_dw_resident.launches}
+            "conv3d_dw_resident": conv3d.conv3d_dw_resident.launches,
+            "fused_lamb": fused_lamb.FusedLamb.launches}
 
 
 def _run_summary(agent):

@@ -6,7 +6,9 @@ and the optimizer construction of `agents/bc_agent.py:52-72`; reference
 LAMB as the reference writes it: no bias correction, the weight norm
 clamped to [0, 10], the trust ratio 1 when either norm is 0. The trust ratio
 is per leaf, so the parameters must be partitioned as the flax tree is, one
-tensor per leaf (convert.py maps the trees one to one). AdamW is
+tensor per leaf (convert.py maps the trees one to one). On CUDA leaves the
+update is the multi-tensor kernel (`ops/fused_lamb.FusedLamb`), on CPU leaves
+its plain version (`ops/fused_lamb.lamb_step_reference`). AdamW is
 `optax.adamw` (`method.optimizer="adam"`). Both are plain classes with one
 interface (`mu`, `nu`, `count`, `step`, `zero_grad`, `state_dict`,
 `current_lr`), not `torch.optim` optimizers, whose rounding order and state
@@ -21,6 +23,9 @@ from typing import Callable, Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
+
+from manigaussian_tpu_torch.ops.fused_lamb import (FusedLamb,
+                                                   lamb_step_reference)
 
 
 def warmup_cosine_schedule(peak: float, warmup_steps: int,
@@ -106,32 +111,34 @@ class Lamb(_Moments):
                  weight_decay: float = 0.0, grad_clip_norm: float = 0.0):
         super().__init__(params, lr, b1, b2, eps, weight_decay,
                          grad_clip_norm)
+        self._fused: Optional[FusedLamb] = None
+
+    def _kernel(self) -> FusedLamb:
+        """The kernel's tables of these leaves, made again if a leaf's
+        storage has moved since."""
+        if self._fused is None or not self._fused.holds(self.params):
+            self._fused = FusedLamb(self.params, self.mu, self.nu)
+        return self._fused
 
     @torch.no_grad()
     def step(self) -> Optional[torch.Tensor]:
         """Apply one update from the parameters' `.grad`; returns the global
-        gradient norm when clipping is on."""
-        grads = self._grads()
-        norm = None
-        if self.grad_clip_norm > 0:
-            norm = clip_by_global_norm_(grads, self.grad_clip_norm)
+        gradient norm when clipping is on. CUDA leaves take the kernel, which
+        reads a missing gradient as zeros; CPU leaves the plain loop."""
+        cuda = self.params[0].is_cuda
+        clip = self.grad_clip_norm > 0
+        grads = ([p.grad for p in self.params] if cuda and not clip
+                 else self._grads())
+        norm = clip_by_global_norm_(grads, self.grad_clip_norm) if clip else None
         lr = self.current_lr()
-        b1, b2 = self.b1, self.b2
-        for p, g, m, v in zip(self.params, grads, self.mu, self.nu):
-            m.copy_(b1 * m + (1 - b1) * g)
-            v.copy_(b2 * v + (1 - b2) * g * g)
-            step = m / (torch.sqrt(v) + self.eps)
-            if self.weight_decay != 0.0:
-                step = step + self.weight_decay * p
-            w_norm = torch.clamp(torch.linalg.norm(p.reshape(-1)), 0.0, 10.0)
-            a_norm = torch.linalg.norm(step.reshape(-1))
-            trust = torch.where((w_norm == 0.0) | (a_norm == 0.0),
-                                torch.ones_like(w_norm),
-                                w_norm / torch.clamp(a_norm, min=1e-30))
-            p.add_((-lr * trust) * step)
+        if cuda:
+            self._kernel().step(grads, lr, self.b1, self.b2, self.eps,
+                                self.weight_decay)
+        else:
+            lamb_step_reference(self.params, grads, self.mu, self.nu, lr,
+                                self.b1, self.b2, self.eps, self.weight_decay)
         self.count += 1
         return norm
-
 
 
 class AdamW(_Moments):
