@@ -4,243 +4,98 @@ Run from the repository root on a machine with one CUDA GPU:
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line; any failure raises and exits non-zero:
-  1. build       — compile every CUDA source of the port with nvcc (sm_90a),
-                   one process per source, and print ptxas's register report;
-  2. kernels     — hold each kernel against its plain PyTorch version on the
-                   card at the main paths' shapes and a few ragged ones: the
-                   flash forward (without and with the LSE and dropout, the
-                   same hashed mask; the keep bits it writes in training
-                   equal to the plain ones bit for bit) and backward (dq, dk,
-                   dv against autograd of the plain version, bitwise
-                   repeatable; in bf16 with dropout from those bits), with
-                   ptxas's registers and spill of its three wgmma kernels;
-                   the forward with dropout on one rank's rows of a batch
-                   (`bh_offset`) against the plain version there and the
-                   whole batch's rows, bit for bit;
-                   the tile blend forward and backward on the
-                   tiles of real frames (16,384 random Gaussians in a 128²
-                   view, binned by the port's rasterizer; batch 2; the micro
-                   config's K 512 / chunk 32; empty tiles; 65,536
-                   Gaussians at K 2048; the bench's own frame at K 8192 /
-                   chunk 512), each bitwise repeatable; one rank's window
-                   of the tile-sharded renderer (tiles 16-31 of the
-                   training frame) against the plain version and the whole
-                   frame's tiles, bit for bit; `golden`: the
-                   JAX package's pinned frames (tests/goldens/*.npz, read with
-                   numpy) rendered through the kernel route; `conv`: the 3³
-                   conv forward, dx and dW (workspace and resident scheme, each
-                   bitwise repeatable, and against each other; the resident
-                   scheme in bf16 also at the widest cluster the card holds,
-                   where small shapes leave CTAs without a step) in fp32 and
-                   bf16 at ragged shapes and at the policy's two 100³ convs,
-                   the resident scheme's plan (cluster size, clusters at
-                   once, waves), with ptxas's registers and spill of the
-                   three wgmma kernels; `lamb`: the multi-tensor LAMB
-                   kernel against its plain loop at `gnfactor_bc`'s 178
-                   leaves over three steps (m and v bit for bit, p within
-                   the card tests' tolerance).
-                   Then time each kernel (the flash forward without and with
-                   dropout, SDPA beside each at the same dropout rate,
-                   unpinned and pinned to each of its backends, 3 rounds in
-                   alternation; the fastest backend is the library time),
-                   its plain version and the PyTorch call that computes the
-                   same function (a yardstick only; the port never calls
-                   it); the
-                   flash kernels, SDPA and the blend kernels on the device
-                   reading (the summed durations of their device work under
-                   torch.profiler), the host loop's events beside it; LAMB's
-                   kernel and loop on CUDA events around steps queued ahead
-                   of the device (`queued_ms`), the kernel failing under its bound;
-                   `bench`: the port's bench twin (manigaussian_tpu_torch/
-                   bench.py: 65,536 Gaussians, 128², K 8192, chunk 512, the
-                   gradient of every input) on the kernel route: renders/s,
-                   the overflow counts, one blend forward and backward a
-                   render and nothing else, the blend pair's device time and
-                   share of a render, the rasterizer's ranges (preprocess,
-                   bin/sort, gather, blend, the backward), busy share, peak;
-  3. small       — references on small inputs, the card against the CPU (the
+checks everything on the card; each phase prints one JSON line and any
+failure raises and exits non-zero. Its phases:
+  1. gpu_tests   — the kernels' own tests, tests/test_torch_{flash,blend,
+                   conv,lamb}_gpu.py with `-m gpu`, in a subprocess: every
+                   kernel against its plain PyTorch version at the main
+                   paths' shapes and ragged ones (the checks of each kernel
+                   live there and only there);
+  2. build       — compile every CUDA source of the port with nvcc (sm_90a),
+                   one process per source; ptxas's register report, and no
+                   spill and no serialized wgmma in the bf16 wgmma kernels
+                   of flash_attention.cu and conv3d.cu;
+  3. bench       — the port's bench twin (manigaussian_tpu_torch/bench.py:
+                   65,536 Gaussians, 128², K 8192, chunk 512) on the kernel
+                   route: one blend forward and backward a render and
+                   nothing else; a render's loss and gradients finite;
+  4. small       — references on small inputs, the card against the CPU (the
                    plain versions, which tests/test_torch_*.py hold to the JAX
                    package): voxelize on cell boundaries, the micro config's
                    act in fp32 and bf16 on each conv route, and `small_train`:
                    the micro configs' `update` in fp32, dropout 0, the same
                    draws (`w_geo`; `w_geo_dyna` and `w_geo_sem_dyna` on the
                    conv kernels, the latter with one `gt_embed` for both);
+                   `gnf_small`: the GNFACTOR_BC micro update the same way;
                    `sem_check`: the SD VAE (ch 32, 64²) and its GT-embed
-                   pipeline on the card against the CPU, then at SD v1 width
-                   on a 512² image its device time, TFLOP/s and peak memory,
-                   and the GT-embed function's wall time for one 128² view;
-                   `gnf_small`: the GNFACTOR_BC micro update as
-                   `small_train` (the NeRF's draws from one CPU generator);
+                   pipeline against the CPU, the SD v1 width tower on a 512²
+                   image and the GT embedding of a 128² view finite;
                    `clip_check`: the CLIP RN50 text tower at its published
-                   width from seeded random weights, card against CPU on
-                   fixed token ids, and one encode's time;
-  4. slice       — the act/eval path at the full width of `config.w_geo()`
-                   (V=100, 2048×512 latents, 6 layers of 8×64 heads, bf16, one
-                   128² front camera), random weights from seed 0, through the
-                   port's eval entry point on the mock env; the counts are set
-                   to 0 just before and read just after: `transformer_depth`
-                   flash forwards per act;
-  5. routes      — act on the kernel route and the plain route: Q values,
-                   latency, memory; torch.profiler over act calls;
-  6. train_slice — the training path at full `w_geo` width through
-                   `python -m manigaussian_tpu_torch.train`'s main(): two
-                   synthetic demos at 128² with nerf views, batch 1, 6 steps,
-                   a checkpoint, then a resume; the counts are set to 0 just
-                   before and read just after: per step `transformer_depth`
-                   flash forwards and backwards, 1 blend forward and 1 blend
-                   backward; finite losses; step time and peak memory;
-  7. train_routes — one batch from the same weights through the kernel route
-                   (flash + pallas) and the plain route (xla + xla), dropout
-                   0 and fixed draws: loss and gradient norm, the step time
-                   of each route, and torch.profiler over 2 training steps;
-  8. dyna slice  — the same entry point with `--variant w_geo_dyna`,
-                   `method.policy_conv_impl=pallas` and the dynamic field's
-                   warm-up gate at step 2, full width otherwise: per step 4
-                   conv forward/dx launches and 2 dW launches on top of the
-                   flash ones, 1 + 1 blend launches before the gate and 2 + 2
-                   after it and after the resume; then `dyna_act`: the eval
-                   entry point on that checkpoint (2 conv and
-                   `transformer_depth` flash forwards per act);
-  9. conv_routes — one `w_geo_dyna` batch (gate open) through
-                   `policy_conv_impl="pallas"` and `"z2d"`: loss, gradient
-                   norm, step time and act latency of each, and
-                   torch.profiler over 2 training steps of the pallas route;
- 10. sem_slice   — the full model, `--variant w_geo_sem_dyna`, as the dyna
-                   slice and with `foundation_checkpoint=random-init`: the
-                   SD VAE (not the stub) computes each batch's `gt_embed` in
-                   the prefetch thread on a CUDA stream of its own; the same
-                   launches a step, `embed_loss` finite and non-zero every
-                   step, the wait in `next(batches)`, and the wall and CPU
-                   time of each embedding call in the prefetch thread; then
-                   `sem_act`;
- 11. sem_routes  — one `w_geo_sem_dyna` batch (gate open, its `gt_embed`
-                   from the SD VAE) through the kernel route (flash + pallas
-                   blend + pallas conv) and the plain route (xla + xla +
-                   z2d), as `train_routes`, and torch.profiler over 2
-                   training steps of the kernel route;
- 12. gnf_slice   — the GNFACTOR_BC baseline (`method.name=GNFACTOR_BC` on
-                   `w_geo`: the NeRF renderer at 128², 512 rays, 64 / 32 /
-                   16 samples, MLP 512 × 5) through the train entry point as
-                   `train_slice`: per step the flash kernels only, no blend
-                   and no conv; then `gnf_act` through the eval entry point;
- 13. gnf_routes  — one GNFACTOR_BC batch through the flash and the plain
-                   attention as `train_routes`, `render_for_vis` called
-                   directly (its wall time, a finite 128² image), the
-                   profile of 2 steps; `nerf_parts`: the NeRF's forward and
-                   backward alone at that width, and its trilinear scatter.
- 14. dino_dir    — the DINOv2 checkpoint-directory route: a tiny DINOv2
-                   written as a Hugging Face directory by the port's writer,
-                   loaded through `create_feature_extractor`, its features on
-                   the card against the CPU.
- 15. dp_slice    — multi-device training through `python -m
-                   manigaussian_tpu_torch.train` at `w_geo` width, global
-                   batch 2, 3 steps: one process; `--mesh 2` and
-                   `--mesh-tile 2` (two ranks on the one card over gloo);
-                   `--mesh 1` over NCCL. Each rank's launches, its
-                   parameters equal to the others' bit for bit, the first
-                   step's losses against the one-process run, step times
-                   and peak memory (two ranks share one card: no scaling
-                   figure).
- 16. eval_slice  — the eval CLI at `w_geo` width over two checkpoints of
-                   different weights: serially (the flash forward
-                   `transformer_depth` times an act), with `--workers 2`
-                   (two spawned processes on the card, each counting its
-                   acts and launches; rows equal to the serial ones) and
-                   with `--record-every-n 1` (a GIF an episode of its
-                   steps + 1 frames); each run's wall time.
- 17. eval_rpc    — `python -m manigaussian_tpu_torch.sim_host_server
-                   --backend mock --port 0 --record <path>` in a
-                   subprocess, the eval CLI against it (`--env rpc://`),
-                   then the recorded session replayed (`--env
-                   transcript://`, exhausted): the mock rows both times;
-                   the time a step spends in the bridge.
- 18. adam_slice  — `method.optimizer=adam` through the train entry point
-                   (3 steps and a resume, as train_slice); the restored
-                   optimizer state equal to the saved one bit for bit; one
-                   more AdamW step on the card against the plain formula
-                   in fp64 (`ADAM_TOL`); the step beside LAMB's.
- 19. disk_slice  — the default `replay.use_disk=true` (the native record
-                   store) through the train entry point, 3 steps and a
-                   resume that reopens the log; the store must not have
-                   fallen back to pickles; a pickle-layout run from the
-                   same demos and seed gives the same first batches bit
-                   for bit; both layouts' waits in `next(batches)`.
- 20. two_level   — the rasterizer's `small_rect_cap` on the training frame
-                   (16,384 Gaussians, 128², the blend kernels): bit for
-                   bit the single-level render (image, features, T,
-                   gradients) with a table of every big Gaussian; with a
-                   quarter of them the CPU plain route's overflow count and
-                   image; sort lengths and bin/sort times.
- 21. dino_swiglu — the DINOv2 directory route with the SwiGLU MLP: a tiny
-                   seeded SwiGLU DINOv2 written by `save_hf_dir`, loaded
-                   through `create_feature_extractor`, card against CPU.
- 22. towers_msgpack — CLIP text, DINOv2 and the SD VAE at tiny seeded
-                   widths: the port's `tools/convert_weights` writes each
-                   torch checkpoint as flax's `.msgpack`; each tower from
-                   the `.msgpack` on the card equals the one from the
-                   checkpoint bit for bit.
- 23. imported_train — train_slice's demos exported in the reference's
-                   on-disk layout (pickled Demo / Observation through module
-                   shims, 24-bit depth PNGs, nerf_data), imported by `python
-                   -m manigaussian_tpu_torch.tools.import_rlbench`, then
-                   `w_geo` at full width for 3 steps and a resume through
-                   the train entry point; the first step's losses beside
-                   train_slice's.
- 24. scaling     — `python -m manigaussian_tpu_torch.bench_scaling` as two
-                   `--dist` ranks sharing the card over gloo (rank 0 in this
-                   process): strong / weak render rows (65,536 Gaussians,
-                   128²) and the tiny config's DP rows at D = 1 and D = 2
-                   (`platform_limited`), the comm-model rows of the render
-                   and of the `w_geo` DP step, each held to its reckoning.
- 25. extras      — `knn_mean_sq_dist` at 16,384 points, `attention3d` and
-                   `ssim`, card against CPU; `capture_trace` around one card
-                   training step.
- 26. campaign    — `python -m manigaussian_tpu_torch.scripts.flagship_campaign
-                   --variant w_geo` through its main() at full `w_geo`
-                   width and the campaign's data shapes (128², 21 nerf
-                   views, 20-step episodes, 3 tasks), cut in depth only (2
-                   demos a task, 60 iterations, log / save / render every
-                   10 / 30 / 30): demo generation, the feed rate, training
-                   (the flash and blend pairs), the artifact; no non-finite
-                   cell, the JAX summary's keys, the last checkpoint
-                   restored, the feed below the step.
- 27. artifact    — `make_results_artifact.run` as the JAX miniature runs it
-                   (1 seed, 2 tasks, 40 iterations, save every 20, 1
-                   episode, 2 workers) on the card: the micro config's
-                   training (the fp32 flash pair, 8-wide heads, and the
-                   blend pair), two spawned eval workers on the card, the
-                   reference CSV format.
- 28. tools       — `gen_demonstrations` (one 128² episode),
-                   `diagnose_learning` (40 micro iterations; training, then
-                   the flash forward of every act) and `make_goldens` on the
-                   card (its oracle, ops/rasterizer_ref.py) against
-                   tests/goldens/*.npz, with the kernel route on the
-                   regenerated scenes against them.
-Every training slice also holds the recon render at step 0
-(`render_for_vis`: the policy's forward, and one blend forward with the
-splat renderer) to its launches.
-Then one JSON line of kernel records, the card's name and power limit, and
-last, the device line.
+                   width from seeded random weights, against the CPU;
+  5. slice       — the act/eval path at the full width of `config.w_geo()`
+                   through the port's eval entry point on the mock env:
+                   `transformer_depth` flash forwards per act, every action
+                   a finite [1, 9]; `routes`: Q values of the kernel route
+                   against the plain route (ROUTE_TOL);
+  6. training    — the train entry point at full width (`train_slice`:
+                   `w_geo`, 6 steps, a checkpoint, a resume), each step's
+                   launches (`expected_launches`) and the recon render's
+                   (`expected_vis_launches`), finite losses; then
+                   `w_geo_dyna` and `w_geo_sem_dyna` (the conv kernels, the
+                   dynamic field's gate at step 2, the SD VAE from
+                   random-init in the prefetch thread) and GNFACTOR_BC, each
+                   with its act through the eval entry point; between them
+                   `train_routes`, `conv_routes`, `sem_routes` and
+                   `gnf_routes`: one batch through the kernel and the plain
+                   route, loss and gradient norm within ROUTE_TOL;
+  7. the other paths, each held to its launches: `dino_dir` and
+                   `dino_swiglu` (DINOv2 directories, card against CPU),
+                   `dp_slice` (`--mesh 2`, `--mesh-tile 2` over gloo and
+                   `--mesh 1` over NCCL: parameters equal across ranks, the
+                   first step within DP_TOL of one process), `eval_slice`
+                   (`--workers 2` on the card, GIFs), `eval_rpc` (the
+                   sim-host server, rpc:// and transcript://), `adam_slice`
+                   (the restored state, AdamW against its formula),
+                   `disk_slice` (the native store; the pickle layout's
+                   batches equal), `two_level` (the rasterizer's two-level
+                   duplication bit for bit), `towers_msgpack`,
+                   `imported_train` (demos in the reference's layout),
+                   `scaling` (the twin as two --dist ranks over gloo, its
+                   collective bytes), `extras` (knn, attention3d, ssim,
+                   capture_trace), `campaign`, `artifact` and `tools` (the
+                   user scripts, the goldens regenerated).
+Then one JSON line of the kernels with their launches on every path
+(`launches_by_path`; a kernel of the main path that it never launched
+fails the run), the card's name and power limit, and last, the device
+line. The program's own times (act, training step) come from benchmark/.
 
-`python3 chip_smoke.py --flash-times` builds the kernels and prints only the
-flash kernels' times (`flash_times`, through the public entry point): run
-from the root of two checkouts in turn, it times both with one yardstick.
-`--blend-times` does the same for the tile blend pair (`blend_times`,
-through `blend_tiles` and autograd); `--conv-times` for the two dW
-schemes beside conv3d_weight (`conv_times`, through `conv3d_dw_resident` and
-`conv3d_dw_workspace`). `--gnf-steps` runs GNFACTOR_BC's first two steps
-at full width on the card and on the CPU from the same weights and batch
-(`gnf_steps`: loss heads, LAMB's trust ratios by leaf, the first update
-split by leaf group). `--embed-ab` builds the kernels and
-compares where the SD VAE's ground-truth embedding runs in `w_geo_sem_dyna`
-training (`embed_ab`: its prefetch thread on a stream of its own or on the
-default stream, the main thread, or no tower). `--step-times` times the
-one-process `w_geo` step and act at full width through `create_agent`,
-`update` and `act` only (`step_times`), for the same kind of A/B. `--lamb-times`
-runs the LAMB phase alone (`phase_lamb`: the multi-tensor kernel against the
-plain loop at `gnfactor_bc`'s 178 leaves, device and host time, launches,
-the bound by bytes).
+With one flag, the script builds the kernels and runs only that flag's
+timers, then prints the card's name and power limit:
+  --flash-times  the flash kernels at [1, 8, 2048, 64] bf16 (`phase_flash`:
+                 the forward without dropout, with dropout, the LSE and the
+                 keep bits, and the backward, on the device reading with
+                 the host loop's beside it; SDPA unpinned and pinned to each
+                 of its backends, 3 rounds in alternation; the plain
+                 version; each kernel's bound);
+  --blend-times  the blend pair through `blend_tiles` and autograd at the
+                 16,384- and the 65,536-Gaussian frame with its peak memory
+                 (`blend_times`), then each kernel alone at those and the
+                 bench's frame beside its plain version and bound
+                 (`phase_blend`);
+  --conv-times   the two dW schemes beside conv3d_weight at the policy's
+                 two 100³ convs, in alternation (`conv_times`), then the
+                 forward, dx and both dW schemes beside their plain
+                 versions, the library call and their bound (`phase_conv`);
+  --lamb-times   the multi-tensor LAMB kernel beside its plain loop at
+                 `gnfactor_bc`'s 178 leaves (`phase_lamb`: device and host
+                 time, events around steps queued ahead, launches, the
+                 bound by bytes);
+  --gnf-steps    GNFACTOR_BC's first two steps at full width on the card
+                 and on the CPU from the same weights and batch
+                 (`gnf_steps`: loss heads, LAMB's trust ratios by leaf, the
+                 first update split by leaf group).
+Copied into the root of another checkout and run there, a timer flag times
+that checkout with the same yardstick.
 
 Nothing of JAX is imported. Scratch files go under build/chip_smoke/ in the
 checkout. With no CUDA device, or without the package beside it, the script
@@ -394,7 +249,59 @@ def device_ms(fn, iters: int = 20, warmup: int = 3, by_kernel=None) -> float:
     return total_us / 1e3 / iters
 
 
+# The kernels' own tests: every kernel against its plain version on the card
+GPU_TESTS = tuple(f"tests/test_torch_{k}_gpu.py"
+                  for k in ("flash", "blend", "conv", "lamb"))
+
+
+def phase_gpu_tests() -> None:
+    """GPU_TESTS with `-m gpu` in a subprocess; their failure fails the
+    run."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytest", "--noconftest", "-m", "gpu", "-q",
+         "-p", "no:cacheprovider", *GPU_TESTS], cwd=ROOT, text=True,
+        capture_output=True, timeout=1800)
+    lines = proc.stdout.strip().splitlines()
+    log("gpu_tests", files=list(GPU_TESTS), summary=lines[-1:],
+        ok=proc.returncode == 0)
+    if proc.returncode:
+        raise AssertionError(f"the GPU tests failed (exit {proc.returncode})"
+                             f":\n{proc.stdout[-6000:]}\n{proc.stderr[-3000:]}")
+
+
+# the bf16 wgmma kernels of each source, held to no spill and no serialized
+# wgmma (ptxas's C7512 or C7520)
+WGMMA_KERNELS = {"flash_attention": ("flash_fwd_bf16_kernel",
+                                     "flash_bwd_dkdv_bf16_kernel",
+                                     "flash_bwd_dq_bf16_kernel"),
+                 "conv3d": ("conv3d_fwd_wgmma_kernel", "conv3d_dw_wgmma_kernel",
+                            "conv3d_dw_resident_kernel")}
+
+
+def ptxas_report(source: str, kernel: str) -> dict:
+    """Registers and spill bytes of the entry functions whose mangled name
+    contains `kernel` (the most registers and the spill summed over a
+    template's instantiations), and whether ptxas serialized their wgmma,
+    from the compiler's log beside the built library."""
+    import re
+    from manigaussian_tpu_torch.ops import _cuda
+    text = _cuda.library_path(source).with_suffix(".log").read_text()
+    found = re.findall(r"Compiling entry function '[^']*" + re.escape(kernel)
+                       + r"[^']*'.*?(\d+) bytes spill stores, (\d+) bytes spill "
+                       r"loads.*?Used (\d+) registers", text, re.S)
+    if not found:
+        raise AssertionError(f"no ptxas report for {kernel} in {source}.log")
+    return {"registers": max(int(m[2]) for m in found),
+            "spill_bytes": sum(int(m[0]) + int(m[1]) for m in found),
+            "instantiations": len(found),
+            "wgmma_serialized": bool(re.search(
+                r"C75(?:12|20)[^\n]*" + re.escape(kernel), text))}
+
+
 def phase_build() -> None:
+    """Every CUDA source of the port with nvcc, ptxas's register report, and
+    the wgmma kernels' registers and spill (no spill, no serialized
+    wgmma)."""
     from manigaussian_tpu_torch.ops import _cuda
     names = sorted(p[:-3] for p in os.listdir(_cuda.CSRC) if p.endswith(".cu"))
     t0 = time.time()
@@ -406,143 +313,13 @@ def phase_build() -> None:
                    if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
     log("build", sources=names, seconds=round(time.time() - t0, 3),
         ptxas=report)
-
-
-# flash_attention.cu's bf16 wgmma kernels, held to no spill and no
-# serialized wgmma (ptxas's C7512 or C7520) in phase `flash`
-FLASH_WGMMA_KERNELS = ("flash_fwd_bf16_kernel", "flash_bwd_dkdv_bf16_kernel",
-                       "flash_bwd_dq_bf16_kernel")
-
-
-def flash_checks() -> dict:
-    """The flash kernels against the plain version at every shape of the
-    list, bf16 and fp32: the forward without the LSE (act's call) and with it
-    (training's, through autograd), the backward against autograd of the
-    plain version; in bf16 with dropout the keep bits the forward writes
-    equal `dropout_keep_bits` bit for bit, and the backward reads them; dq,
-    dk, dv bitwise equal over two backward calls. Returns the errors at the
-    policy's training shape."""
-    import torch
-    from manigaussian_tpu_torch.ops.flash_attention import (
-        dropout_keep_bits, flash_attention_forward, flash_self_attention,
-        flash_self_attention_backward, flash_self_attention_reference)
-
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    # (dtype, N, head dim, forward tolerance): bf16 at the policy's shape and
-    # ragged ones, each at dropout 0 and 0.1; the backward's tolerance: bf16
-    # 2e-2·max(1, max|ref|), fp32 1e-4·max(1, max|ref|) (sums over N keys in
-    # another order)
-    shapes = [("bfloat16", 2048, 64, 2e-2), ("bfloat16", 256, 64, 2e-2),
-              ("bfloat16", 512, 32, 2e-2), ("bfloat16", 100, 16, 2e-2),
-              ("bfloat16", 100, 64, 2e-2), ("float32", 2048, 64, 1e-5),
-              ("float32", 512, 64, 1e-5), ("float32", 32, 8, 1e-5)]
-    errs = {}
-    for dtype, n, d, tol in shapes:
-        for rate in (0.0, 0.1):
-            dt = getattr(torch, dtype)
-            q, k, v = (torch.randn(1, 8, n, d, generator=gen, device="cuda").to(dt)
-                       .requires_grad_() for _ in range(3))
-            bq = 256 if n % 256 == 0 else n
-            seed = 1234
-            with torch.no_grad():   # act's call: no LSE, no bits
-                out_nolse = flash_self_attention(q, k, v, rate, torch.tensor([seed]), bq)
-            out = flash_self_attention(q, k, v, rate, torch.tensor([seed]), bq)
-            g = torch.randn(out.shape, generator=gen, device="cuda")
-            grads = torch.autograd.grad((out.float() * g).sum(), (q, k, v))
-            ref = flash_self_attention_reference(q, k, v, rate, seed, bq)
-            rgrads = torch.autograd.grad((ref.float() * g).sum(), (q, k, v))
-            fwd_err = (out.float() - ref.float()).abs().max().item()
-            nolse_err = (out_nolse.float() - ref.float()).abs().max().item()
-            btol = 2e-2 if dtype == "bfloat16" else 1e-4
-            bwd = {}
-            for name, a, b in zip(("dq", "dk", "dv"), grads, rgrads):
-                scale = max(1.0, b.float().abs().max().item())
-                bwd[name] = (a.float() - b.float()).abs().max().item() / scale
-            # the backward again, directly: bitwise repeatable
-            qd, kd, vd = (x.detach() for x in (q, k, v))
-            gd = g.to(dt)
-            extra = {}
-            o2, lse, bits = flash_attention_forward(qd, kd, vd, rate, seed, bq,
-                                                    with_lse=True)
-            runs = [flash_self_attention_backward(qd, kd, vd, o2, gd, lse, rate, seed, bq,
-                                                  keep_bits=bits)
-                    for _ in range(2)]
-            extra["bitwise_repeatable"] = all(torch.equal(a, b) for a, b in zip(*runs))
-            if bits is not None:
-                extra["keep_bits_equal_plain"] = torch.equal(
-                    bits, dropout_keep_bits(seed, rate, 8, n, bq, "cuda"))
-            torch.cuda.synchronize()
-            ok = (bool(torch.isfinite(out).all()) and fwd_err <= tol
-                  and nolse_err <= tol and all(e <= btol for e in bwd.values())
-                  and all(extra.values()))
-            log("kernel_check", kernel="flash_self_attention", dtype=dtype,
-                shape=[1, 8, n, d], dropout=rate, max_abs_err=fwd_err,
-                max_abs_err_without_lse=nolse_err, tol=tol,
-                bwd_err_over_scale=bwd, bwd_tol=btol, **extra, ok=ok)
-            if not ok:
-                raise AssertionError(f"flash kernels disagree: {dtype} n={n} d={d} "
-                                     f"rate={rate} fwd={fwd_err} {nolse_err} "
-                                     f"bwd={bwd} {extra}")
-            if (dtype, n, d, rate) == ("bfloat16", 2048, 64, 0.1):
-                errs = {"fwd": fwd_err, "bwd": max(bwd.values()) * max(
-                    1.0, max(b.float().abs().max().item() for b in rgrads))}
-    return errs
-
-
-def flash_offset_check() -> dict:
-    """The flash forward on one rank's rows of a data-parallel batch: q, k,
-    v of rows 2-3 of a batch of 4 at [·, 8, 2048, 64] bf16 (and [·, 8, 512,
-    64] fp32), dropout 0.1, `bh_offset` = 2·8. The rank's output (and in
-    bf16 its keep bits) equals rows 2-3 of the kernel's call on the whole
-    batch bit for bit, and the plain version at the same offset within row
-    1's tolerance; in fp32, whose backward hashes the mask again, the rank's
-    dq, dk, dv equal the whole batch's rows bit for bit too."""
-    import torch
-    from manigaussian_tpu_torch.ops.flash_attention import (
-        flash_attention_forward, flash_self_attention_backward,
-        flash_self_attention_reference)
-    gen = torch.Generator(device="cuda").manual_seed(7)
-    out = {}
-    for dtype, n, tol in (("bfloat16", 2048, 2e-2), ("float32", 512, 1e-5)):
-        dt = getattr(torch, dtype)
-        q, k, v = (torch.randn(4, 8, n, 64, generator=gen, device="cuda").to(dt)
-                   for _ in range(3))
-        g = torch.randn(4, 8, n, 64, generator=gen, device="cuda").to(dt)
-        seed, rate, lo = 4321, 0.1, 2
-        whole, lse_w, bits_w = flash_attention_forward(q, k, v, rate, seed, 256,
-                                                       with_lse=True)
-        qr, kr, vr = (x[lo:].contiguous() for x in (q, k, v))
-        part, lse_p, bits_p = flash_attention_forward(qr, kr, vr, rate, seed,
-                                                      256, with_lse=True,
-                                                      bh_offset=lo * 8)
-        ref = flash_self_attention_reference(qr, kr, vr, rate, seed, 256,
-                                             bh_offset=lo * 8)
-        rows_equal = torch.equal(part, whole[lo:])
-        bits_equal = (bits_p is None and bits_w is None) or torch.equal(
-            bits_p, bits_w[lo * 8:])
-        err = (part.float() - ref.float()).abs().max().item()
-        extra = {}
-        if dtype == "float32":
-            gw = flash_self_attention_backward(q, k, v, whole, g, lse_w, rate,
-                                               seed, 256)
-            gp = flash_self_attention_backward(
-                qr, kr, vr, part, g[lo:].contiguous(), lse_p, rate, seed, 256,
-                bh_offset=lo * 8)
-            extra["bwd_rows_bitwise_equal"] = all(
-                torch.equal(a[lo:], b) for a, b in zip(gw, gp))
-        torch.cuda.synchronize()
-        ok = rows_equal and bits_equal and err <= tol and all(extra.values())
-        log("kernel_check", kernel="flash_self_attention_bh_offset",
-            dtype=dtype, shape=[2, 8, n, 64], rows_of=[4, 8, n, 64],
-            bh_offset=lo * 8, dropout=rate, rows_bitwise_equal=rows_equal,
-            keep_bits_equal=bits_equal, max_abs_err=err, tol=tol, **extra,
-            ok=ok)
-        if not ok:
-            raise AssertionError(f"flash bh_offset check failed ({dtype}): "
-                                 f"rows {rows_equal} bits {bits_equal} err "
-                                 f"{err} {extra}")
-        out[dtype] = err
-    return out
+    for source, kernels in WGMMA_KERNELS.items():
+        build = {k: ptxas_report(source, k) for k in kernels}
+        log("kernel_build", source=f"manigaussian_tpu_torch/csrc/{source}.cu",
+            **build)
+        if any(b["spill_bytes"] or b["wgmma_serialized"] for b in build.values()):
+            raise AssertionError(f"the wgmma kernels of {source}.cu spill or "
+                                 f"serialize: {build}")
 
 
 # SDPA's backends, each timed pinned (`sdpa_kernel([backend])`) beside the
@@ -682,18 +459,11 @@ def sdpa_summary(times: dict, call: str) -> dict:
             "fastest": fastest, "fastest_ms": timed[fastest]}
 
 
-def phase_flash() -> dict:
-    """The flash forward (with and without dropout) and backward against the
-    plain version; ptxas's registers and spill of the wgmma kernels; then
-    their times at the policy's shape."""
-    errs = flash_checks()
-    flash_offset_check()
-    build = {k: ptxas_report("flash_attention", k) for k in FLASH_WGMMA_KERNELS}
-    log("kernel_build", source="manigaussian_tpu_torch/csrc/flash_attention.cu",
-        **build)
-    if any(b["spill_bytes"] or b["wgmma_serialized"] for b in build.values()):
-        raise AssertionError(f"the wgmma flash kernels spill or serialize: {build}")
-
+def phase_flash() -> None:
+    """The flash kernels' times at the policy's shape (`flash_times`), each
+    beside its bound and SDPA's fastest backend: the forward without
+    dropout (act's), with dropout 0.1, the LSE and the keep bits
+    (training's), and the backward."""
     from manigaussian_tpu_torch.ops.flash_attention import keep_bits_words
 
     times = flash_times()
@@ -703,7 +473,6 @@ def phase_flash() -> dict:
     # the keep bits: training's forward writes them, the backward reads them
     bits_bytes = 4.0 * bh * n * keep_bits_words(n)
     int_ms = DROPOUT_INT_OPS * bh * n * n / PEAK_INT32 * 1e3
-    source = "manigaussian_tpu_torch/csrc/flash_attention.cu"
 
     def variant(kind, lib, plain, bound_ms, bound_by, **extra):
         """`kind`'s record; the library's time is SDPA's fastest backend's
@@ -742,13 +511,6 @@ def phase_flash() -> dict:
                             "bytes": nbytes / PEAK_BYTES * 1e3,
                             "int32": int_ms if rec["dropout"] else 0.0},
             tflops=fwd_flops / rec["ms"] / 1e9, **rec)
-    # the record carries training's variant (dropout 0.1, as on the main
-    # path) and act's variant beside it
-    records = [{"name": "flash_self_attention_fwd", "route": "cuda",
-                "source": source,
-                "replaces": "manigaussian_tpu/ops/flash_attention.py:138",
-                "launches": None, "max_abs_err": errs["fwd"], **train,
-                "no_dropout": act}]
 
     bwd_flops = 10.0 * bh * n * n * d
     # q, k, v, out, dO in; dq, dk, dv out; the LSE and the keep bits in (the
@@ -757,50 +519,33 @@ def phase_flash() -> dict:
     bound_ms, bound_by = bound(bwd_flops, bwd_bytes, PEAK_FLOPS["bfloat16"])
     bwd = variant("bwd", "sdpa_bwd_0.1", "plain_bwd_0.1", bound_ms, bound_by,
                   dropout=0.1, reads_keep_bits=True)
-    records.append({"name": "flash_self_attention_bwd", "route": "cuda",
-                    "source": source,
-                    "replaces": "manigaussian_tpu/ops/flash_attention.py:166",
-                    "launches": None, "max_abs_err": errs["bwd"], **bwd})
     log("kernel_time", kernel="flash_self_attention_bwd", shape=[1, 8, n, d],
         dtype="bfloat16", flops=bwd_flops, bytes=bwd_bytes,
         tflops=bwd_flops / bwd["ms"] / 1e9, **bwd)
-    return {r["name"]: r for r in records}
 
 
-def random_frame(n: int = 16384, hw: int = 128, seed: int = 0,
-                 tile_range=None):
-    """A real frame's blend inputs: n random Gaussians (the JAX tests'
-    random_scene distribution, drawn with numpy) in front of a 128² camera,
-    binned and packed by the port's rasterizer on the card (only the tiles
-    of `tile_range`, a rank's window, when given)."""
-    import numpy as np
+def random_frame(n: int = 16384, hw: int = 128, seed: int = 0):
+    """A real frame's blend inputs (counts, origins, attrs, livet): the n
+    Gaussians of `random_scene` in front of a hw² camera, binned and packed
+    by the port's rasterizer on the card."""
     import torch
     from manigaussian_tpu_torch.ops import gaussian_math as gm
     from manigaussian_tpu_torch.ops.camera import novel_camera_calib
     from manigaussian_tpu_torch.ops.rasterizer import (RasterizeConfig,
                                                        pack_tiles, tile_lists)
-    rng = np.random.default_rng(seed)
-    f = np.float32
-    means = np.array([0.0, 0.0, 2.0]) + 0.5 * rng.standard_normal((n, 3))
-    scales = np.exp(rng.uniform(np.log(0.01), np.log(0.08), (n, 3)))
-    q = rng.standard_normal((n, 4))
-    rots = q / np.linalg.norm(q, axis=-1, keepdims=True)
-    opac = rng.uniform(0.05, 0.95, n)
-    shs = 0.3 * rng.standard_normal((n, 4, 3))
-    lang = rng.standard_normal((n, 3))
-    t = lambda x: torch.tensor(np.asarray(x, f), device="cuda")[None]
+    scene = random_scene(n, seed)
+    t = lambda k: torch.tensor(scene[k], device="cuda")[None]
     intr = torch.tensor([[hw * 0.95, 0, hw / 2], [0, hw * 0.95, hw / 2], [0, 0, 1]],
                         device="cuda")
     cam = novel_camera_calib(intr[None], torch.eye(4, device="cuda")[None],
                              0.1, 4.0, hw, hw)
     cfg = RasterizeConfig(width=hw, height=hw)
-    pre = gm.preprocess(t(means), t(opac), cam, hw, hw, 16, scales=t(scales),
-                        rotations=t(rots), shs=t(shs))
-    gidx, in_list, _, ov_s, ov_g = tile_lists(pre, cfg, tile_range)
+    pre = gm.preprocess(t("means3d"), t("opacities"), cam, hw, hw, 16,
+                        scales=t("scales"), rotations=t("rotations"),
+                        shs=t("shs"))
+    gidx, in_list = tile_lists(pre, cfg)[:2]
     with torch.no_grad():
-        counts, origins, attrs, livet = pack_tiles(pre, t(lang), gidx, in_list,
-                                                   cfg, 1, tile_range)
-    return counts, origins, attrs, livet, cfg, int(ov_s), int(ov_g)
+        return pack_tiles(pre, t("language_features"), gidx, in_list, cfg, 1)
 
 
 def blend_work(counts, origins, attrs, livet, chunk) -> dict:
@@ -871,8 +616,8 @@ def blend_bound(kind: str, work: dict, nbytes: float, old_bytes: float) -> dict:
 def bench_frame():
     """The bench's frame (`manigaussian_tpu_torch/bench.py`: its 65,536
     Gaussians from seed 0, its 128² camera and its RasterizeConfig, K 8192,
-    chunk 512), binned and packed by the port's rasterizer on the card.
-    Returns ((counts, origins, attrs, livet), chunk, overflow_splats)."""
+    chunk 512), binned and packed by the port's rasterizer on the card:
+    (counts, origins, attrs, livet)."""
     import torch
     from manigaussian_tpu_torch import bench
     from manigaussian_tpu_torch.ops import gaussian_math as gm
@@ -884,170 +629,31 @@ def bench_frame():
     pre = gm.preprocess(s["means"][None], s["opacities"][None], cam, 128, 128,
                         16, scales=s["scales"][None],
                         rotations=s["rotations"][None], shs=s["shs"][None])
-    gidx, in_list, _, ov_s, _ = tile_lists(pre, cfg)
+    gidx, in_list = tile_lists(pre, cfg)[:2]
     with torch.no_grad():
-        frame = pack_tiles(pre, s["lang"][None], gidx, in_list, cfg, 1)
-    return frame, cfg.chunk, int(ov_s)
+        return pack_tiles(pre, s["lang"][None], gidx, in_list, cfg, 1)
 
 
-def blend_cases():
-    """The frames of the blend checks, each (name, (counts, origins, attrs,
-    livet), chunk, gaussians): the training frame (16,384 random Gaussians
-    at 128², K 2048); batch 2 (two such frames, T = 128); the micro config's
-    K 512 / chunk 32 (the front-most 512 slots of a frame); a 64² frame of
-    2,048 Gaussians at K 256 with two tiles emptied (count 0); the 65,536
-    frame of the root bench's distributions at K 2048 (full lists and
-    overflow); the bench's own frame at its K 8192 and chunk 512."""
-    import torch
-    f0 = random_frame(16384, 128, 0)[:4]
-    f1 = random_frame(16384, 128, 3)[:4]
-    micro = [x.contiguous() for x in random_frame(16384, 128, 1)[:4]]
-    micro[2] = micro[2][:, :, :512].contiguous()
-    micro[3] = micro[3][:, :, :512].contiguous()
-    small = list(random_frame(2048, 64, 2)[:4])
-    small[2], small[3] = (x[:, :, :256].contiguous() for x in small[2:])
-    small[0] = small[0].clone()
-    small[0][[0, 5]] = 0
-    small[3] = small[3].clone()
-    small[3][[0, 5]] = 0
-    return [("train_16384", f0, 256, 16384),
-            ("batch2_16384", tuple(torch.cat([a, b]) for a, b in zip(f0, f1)), 256,
-             2 * 16384),
-            ("micro_k512_chunk32", tuple(micro), 32, 16384),
-            ("count0_64px_k256", tuple(small), 256, 2048),
-            ("frame_65536", random_frame(65536, 128, 4)[:4], 256, 65536),
-            ("bench_k8192_chunk512", bench_frame()[0], 512, 65536)]
-
-
-def blend_window_check() -> None:
-    """The blend pair on one rank's window of the tile-sharded renderer:
-    tiles 16-31 of the 64-tile training frame (16,384 Gaussians, 128²),
-    binned and packed with `tile_range` (global pixel origins). The kernels'
-    outputs and the gradient of the window's attributes equal the same
-    tiles of the whole frame's kernel calls bit for bit, and the plain
-    version under the golden rules."""
-    import torch
-    from manigaussian_tpu_torch.ops.blend import (blend_tiles,
-                                                  blend_tiles_reference)
-    gen = torch.Generator(device="cuda").manual_seed(5)
-    whole = random_frame(16384, 128, 0)[:4]
-    part = random_frame(16384, 128, 0, tile_range=(16, 16))[:4]
-    gs = [torch.randn(64, c, 256, generator=gen, device="cuda") for c in (3, 3, 1)]
-    gw = [g[16:32] for g in gs]
-
-    def run(fn, frame, grads):
-        a = frame[2].clone().requires_grad_()
-        out = fn(frame[0], frame[1], a, frame[3], 3, 16, 256)
-        sum((o * g).sum() for o, g in zip(out, grads)).backward()
-        return [o.detach() for o in out], a.grad
-
-    out_w, grad_w = run(blend_tiles, whole, gs)
-    out_p, grad_p = run(blend_tiles, part, gw)
-    ref_p, rgrad_p = run(blend_tiles_reference, part, gw)
-    torch.cuda.synchronize()
-    # the packed inputs alike on the live slots (a slot past a tile's list
-    # holds whatever follows it in the sorted keys, which the window cuts)
-    live = whole[3][16:32] > 0.5
-    inputs_equal = (all(torch.equal(a, b[16:32]) for a, b in
-                        zip((part[0], part[1], part[3]),
-                            (whole[0], whole[1], whole[3])))
-                    and torch.equal(torch.where(live, part[2], 0.0),
-                                    torch.where(live, whole[2][16:32], 0.0)))
-    tiles_equal = all(torch.equal(a, b[16:32]) for a, b in zip(out_p, out_w))
-    grad_equal = torch.equal(grad_p, grad_w[16:32])
-    fwd = [mostly_close(o.cpu(), r.cpu(), 1e-4, 1e-3) for o, r in zip(out_p, ref_p)]
-    bwd = mostly_close(grad_p.cpu(), rgrad_p.cpu(), 2e-4, 1e-3, 0.02)
-    ok = (inputs_equal and tiles_equal and grad_equal and bwd[0]
-          and all(x[0] for x in fwd))
-    log("kernel_check", kernel="blend_tiles_window", frame="train_16384",
-        window=[16, 32], tiles=int(part[0].shape[0]),
-        origins_first=part[1][0].tolist(),
-        packed_live_slots_equal_whole=inputs_equal,
-        outputs_bitwise_equal_whole=tiles_equal,
-        dattrs_bitwise_equal_whole=grad_equal,
-        fwd_frac_outside_max_diff=[x[1:] for x in fwd],
-        bwd_frac_outside_max_diff=bwd[1:], ok=ok)
-    if not ok:
-        raise AssertionError(f"blend window check failed: packed "
-                             f"{inputs_equal} outputs {tiles_equal} grads "
-                             f"{grad_equal} fwd {fwd} bwd {bwd}")
-
-
-def phase_blend() -> dict:
-    """The blend forward and backward against the plain version (through
-    `blend_tiles` and autograd) on every frame of `blend_cases`, each kernel
-    bitwise repeatable; the backward with one output unused; the golden
-    frames; then the times at the training and the 65,536 frame, on the
-    device reading with the host loop's beside it."""
+def phase_blend() -> None:
+    """The blend forward and backward kernels' times (`blend_forward`,
+    `blend_backward`) and their plain versions', each beside its bound
+    (`blend_bound` on `blend_work`), at the training frame (16,384 random
+    Gaussians at 128², K 2048), the 65,536 frame and the bench's frame (K
+    8192, chunk 512), on the device reading with the host loop's beside
+    it."""
     import torch
     from manigaussian_tpu_torch.ops.blend import (KERNEL_SEGMENTS,
                                                   blend_backward, blend_forward,
-                                                  blend_tiles,
-                                                  blend_tiles_reference,
-                                                  segment_bounds, walk_end)
+                                                  blend_tiles_reference)
 
     gen = torch.Generator(device="cuda").manual_seed(1)
-    errs, frames = {}, {}
-    rule = ("outputs atol 1e-4 rtol 1e-3 ≤0.5 % outside; dattrs atol 2e-4 "
-            "rtol 1e-3 ≤2 % outside (the JAX golden tests' rules)")
-    for name, (counts, origins, attrs, livet), chunk, n_gauss in blend_cases():
-        t, _, k = attrs.shape
-        gs = [torch.randn(t, c, 256, generator=gen, device="cuda") for c in (3, 3, 1)]
-        a1 = attrs.clone().requires_grad_()
-        out = blend_tiles(counts, origins, a1, livet, 3, 16, chunk)
-        sum((o * g).sum() for o, g in zip(out, gs)).backward()
-        a2 = attrs.clone().requires_grad_()
-        ref = blend_tiles_reference(counts, origins, a2, livet, 3, 16, chunk)
-        sum((o * g).sum() for o, g in zip(ref, gs)).backward()
-        torch.cuda.synchronize()
-        fwd = [mostly_close(o.detach().cpu(), r.detach().cpu(), 1e-4, 1e-3)
-               for o, r in zip(out, ref)]
-        bwd = mostly_close(a1.grad.cpu(), a2.grad.cpu(), 2e-4, 1e-3, 0.02)
-        runs = [blend_forward(counts, origins, attrs, livet, 3, 16, chunk)
-                for _ in range(2)]
-        fwd_rep = all(torch.equal(x, y) for x, y in zip(*runs))
-        color, lang, _, state = runs[0]
-        grads = [blend_backward(counts, origins, attrs, livet, color, lang, state,
-                                *gs, 3, 16, chunk) for _ in range(2)]
-        bwd_rep = torch.equal(*grads)
-        ends = [walk_end(int(c), k, chunk) for c in counts[:, 0]]
-        seg_len = [segment_bounds(e, KERNEL_SEGMENTS)[0][1] for e in ends]
-        extra = {}
-        if name == "train_16384":
-            # color and log T in the loss, the features unused (a None
-            # cotangent, zeros in the Function)
-            x1 = attrs.clone().requires_grad_()
-            c1, _, l1 = blend_tiles(counts, origins, x1, livet, 3, 16, chunk)
-            ((c1 * gs[0]).sum() + (l1 * gs[2]).sum()).backward()
-            x2 = attrs.clone().requires_grad_()
-            c2, _, l2 = blend_tiles_reference(counts, origins, x2, livet, 3, 16, chunk)
-            ((c2 * gs[0]).sum() + (l2 * gs[2]).sum()).backward()
-            unused = mostly_close(x1.grad.cpu(), x2.grad.cpu(), 2e-4, 1e-3, 0.02)
-            extra["unused_output_bwd_frac_outside_max_diff"] = unused[1:]
-            extra["unused_output_ok"] = unused[0]
-        ok = (all(x[0] for x in fwd) and bwd[0] and fwd_rep and bwd_rep
-              and extra.get("unused_output_ok", True))
-        log("kernel_check", kernel="blend_tiles", frame=name, tiles=t, capacity=k,
-            chunk=chunk, gaussians=n_gauss, splats_binned=int(counts.clamp(min=0).sum()),
-            tiles_count_0=int((counts[:, 0] <= 0).sum()),
-            tiles_walk_end_not_a_multiple_of_segment=sum(
-                1 for e, sl in zip(ends, seg_len) if sl and e % sl),
-            fwd_frac_outside_max_diff=[x[1:] for x in fwd],
-            bwd_frac_outside_max_diff=bwd[1:], fwd_bitwise_repeatable=fwd_rep,
-            bwd_bitwise_repeatable=bwd_rep, rule=rule, **extra, ok=ok)
-        if not ok:
-            raise AssertionError(f"blend kernels disagree ({name}): fwd {fwd} "
-                                 f"bwd {bwd} repeatable {fwd_rep} {bwd_rep} {extra}")
-        if name == "train_16384":
-            errs = {"fwd": max(x[2] for x in fwd), "bwd": bwd[2]}
-        if name in ("train_16384", "frame_65536", "bench_k8192_chunk512"):
-            frames[name] = (counts, origins, attrs, livet, gs, chunk, n_gauss)
-    blend_window_check()
-    phase_golden()
-
-    records = {}
-    for name, (counts, origins, attrs, livet, gs, chunk, n_gauss) in frames.items():
+    frames = {"train_16384": (random_frame(16384, 128, 0), 256, 16384),
+              "frame_65536": (random_frame(65536, 128, 4), 256, 65536),
+              "bench_k8192_chunk512": (bench_frame(), 512, 65536)}
+    for name, ((counts, origins, attrs, livet), chunk, n_gauss) in frames.items():
         t, c, k = attrs.shape
+        gs = [torch.randn(t, n, 256, generator=gen, device="cuda")
+              for n in (3, 3, 1)]
         work = blend_work(counts, origins, attrs, livet, chunk)
         color, lang, logtf, state = blend_forward(counts, origins, attrs, livet,
                                                   3, 16, chunk)
@@ -1080,17 +686,6 @@ def phase_blend() -> dict:
                 capacity=k, chunk=chunk, gaussians=n_gauss,
                 segments=KERNEL_SEGMENTS, **work, bytes=nbytes,
                 old_bytes=old_bytes, kernels=kernels, **rec)
-            if name == "train_16384":
-                records[f"blend_{kind}"] = {
-                    "name": f"blend_{kind}", "route": "cuda",
-                    "source": "manigaussian_tpu_torch/csrc/blend.cu",
-                    "replaces": ("manigaussian_tpu/ops/pallas_blend.py:317"
-                                 if kind == "fwd" else
-                                 "manigaussian_tpu/ops/pallas_blend.py:339"),
-                    "launches": None, "max_abs_err": errs[kind], **rec}
-            else:
-                records[f"blend_{kind}"][name] = {**rec, **work}
-    return records
 
 
 def blend_times() -> dict:
@@ -1107,7 +702,7 @@ def blend_times() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(1)
     times = {}
     for n in (16384, 65536):
-        counts, origins, attrs, livet = random_frame(n, 128, 0)[:4]
+        counts, origins, attrs, livet = random_frame(n, 128, 0)
         gs = [torch.randn(attrs.shape[0], c, 256, generator=gen, device="cuda")
               for c in (3, 3, 1)]
         ag = attrs.clone().requires_grad_()
@@ -1133,162 +728,45 @@ def phase_bench(counters: dict) -> dict:
     """The bench twin (`manigaussian_tpu_torch/bench.py`, the root bench's
     workload: 65,536 Gaussians at 128², K 8192, chunk 512, the gradient of
     every input) on the kernel route through its `run` (one warm-up, 30
-    timed renders), with the counts set to 0 just before and read just
-    after: one blend forward and one backward a render, nothing else. Then
-    one render's device time and the blend pair's share of it (summed kernel
-    durations under torch.profiler), the device time inside each of the
-    rasterizer's named ranges (preprocess, bin/sort, gather, blend; the
-    backward the rest), the busy share, and the peak memory of a render
-    above its inputs."""
+    renders), with the counts set to 0 just before and read just after: one
+    blend forward and one backward a render, nothing else; then one
+    render's loss and gradients finite."""
     import torch
     from manigaussian_tpu_torch import bench
 
     for fn in counters.values():
         fn.launches = 0
-    t0 = time.time()
-    res = bench.run(65536, 128, device="cuda")
+    bench.run(65536, 128, device="cuda")
     torch.cuda.synchronize()
-    run_s = time.time() - t0
     launches = {k: fn.launches for k, fn in counters.items()}
     renders = 1 + bench.ITERS
     expect = {k: 0 for k in counters} | {"blend_fwd": renders,
                                          "blend_bwd": renders}
-
     gen = torch.Generator().manual_seed(0)
     scene = bench.make_scene(65536, gen, "cuda")
     target = torch.rand(128, 128, 3, generator=gen).cuda()
-    camera, cfg = bench.make_camera(128, "cuda"), bench.bench_config(128)
-    torch.cuda.synchronize()
-    base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    loss, grads, _ = bench.loss_and_grads(scene, camera, cfg, target)
+    loss, grads, _ = bench.loss_and_grads(scene, bench.make_camera(128, "cuda"),
+                                          bench.bench_config(128), target)
     finite = bool(torch.isfinite(loss)) and all(
         bool(torch.isfinite(g).all()) for g in grads.values())
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated() - base
-    del grads
-    step = lambda: float(bench.loss_and_grads(scene, camera, cfg, target)[0])
-    prof = phase_profile(step, "bench render: fwd+bwd, 65,536 Gaussians, "
-                         "128², K 8192, chunk 512", calls=5,
-                         ranges_of="rasterize/", phase="bench_profile")
-    kernels = {}
-    render_ms = device_ms(step, iters=10, warmup=2, by_kernel=kernels)
-    blend = {k: v for k, v in kernels.items() if "blend_" in k}
-    blend_ms = sum(blend.values())
-    ok = launches == expect and finite and res["value"] > 0
-    log("bench", **res, iters=bench.ITERS, run_s=run_s, launches=launches,
-        expected=expect, finite=finite, device_ms_per_render=render_ms,
-        blend_pair_device_ms=blend_ms, blend_kernels_ms=blend,
-        blend_pair_share_of_render=blend_ms / render_ms,
-        range_device_ms=prof["range_kernel_ms_per_call"],
-        wall_ms_per_render_profiled=prof["wall_ms_per_call"],
-        device_busy_share=prof["device_busy_share"],
-        peak_bytes_above_inputs=peak, ok=ok)
+    ok = launches == expect and finite
+    log("bench", launches=launches, expected=expect, finite=finite, ok=ok)
     if not ok:
         raise AssertionError(f"the bench failed its checks: {launches} "
                              f"finite {finite}")
-    return {"launches": launches, "renders_per_s": res["value"]}
+    return {"launches": launches}
 
 
-def phase_golden() -> None:
-    """tests/goldens/tabletop_{dense,sparse}.npz (frames the JAX package
-    pinned from its oracle) rendered on the card through the kernel route:
-    color, language and final-T frames under the golden tests' rule, radii
-    exact. The pinned gradients belong to a loss whose weights come from
-    jax.random, so the card's backward is held to the plain route above."""
-    import numpy as np
-    import torch
-    from manigaussian_tpu_torch.ops.blend import blend_forward
-    from manigaussian_tpu_torch.ops.camera import novel_camera_calib
-    from manigaussian_tpu_torch.ops.rasterizer import RasterizeConfig, rasterize
-
-    for name in ("tabletop_dense", "tabletop_sparse"):
-        d = dict(np.load(os.path.join(ROOT, "tests", "goldens", name + ".npz")))
-        h, w = int(d["height"]), int(d["width"])
-        n = d["means3d"].shape[0]
-        t = lambda k: torch.tensor(d[k], device="cuda")
-        cam = novel_camera_calib(t("intrinsic"), t("c2w"), float(d["znear"]),
-                                 float(d["zfar"]), h, w)
-        cfg = RasterizeConfig(width=w, height=h, tile=16,
-                              max_tiles_per_gaussian=(h // 16) * (w // 16),
-                              tile_capacity=max(256, ((n + 127) // 128) * 128),
-                              chunk=128, sh_degree=1, backend="pallas")
-        before = blend_forward.launches
-        with torch.no_grad():
-            out, extras = rasterize(t("means3d"), t("opacities"), cam, cfg,
-                                    (0.0, 0.0, 0.0), t("scales"), t("rotations"),
-                                    t("shs"), t("language_features"))
-        torch.cuda.synchronize()
-        res = {k: mostly_close(getattr(out, f).cpu(), d[g], 1e-4, 1e-3)
-               for k, f, g in (("color", "color", "golden_color"),
-                               ("lang", "language_feature", "golden_lang"),
-                               ("final_t", "final_t", "golden_final_t"))}
-        radii_ok = bool(np.array_equal(out.radii.cpu().numpy(), d["golden_radii"]))
-        ok = (all(r[0] for r in res.values()) and radii_ok
-              and blend_forward.launches == before + 1
-              and int(extras.overflow_splats) == 0
-              and int(extras.overflow_gaussians) == 0)
-        log("golden", fixture=name, image=[h, w], gaussians=n,
-            frac_outside_max_diff={k: r[1:] for k, r in res.items()},
-            radii_equal=radii_ok, rule="atol 1e-4 rtol 1e-3, ≤0.5 % outside",
-            ok=ok)
-        if not ok:
-            raise AssertionError(f"golden frame {name} disagrees: {res}")
-
-
-# The conv kernels against their plain versions, relative to max(1, max|plain|).
-# float32: plain FMA against a float32 matmul, other summation order. bfloat16:
-# both multiply the same bf16 values exactly and differ in the order and the
-# rounding of the float32 accumulation (the tensor cores do not round to
-# nearest): over 27·Ci terms in the forward and dx, over every voxel in dW,
-# where one bf16 step (2^-8) is what dW is rounded to on its way to the
-# parameter anyway.
-CONV_TOL = {"float32": {"fwd": 1e-5, "dw": 1e-5},
-            "bfloat16": {"fwd": 1e-3, "dw": 2.0 ** -8}}
-
-
-def ptxas_report(source: str, kernel: str) -> dict:
-    """Registers and spill bytes of the entry functions whose mangled name
-    contains `kernel` (the most registers and the spill summed over a
-    template's instantiations), and whether ptxas serialized their wgmma,
-    from the compiler's log beside the built library."""
-    import re
-    from manigaussian_tpu_torch.ops import _cuda
-    text = _cuda.library_path(source).with_suffix(".log").read_text()
-    found = re.findall(r"Compiling entry function '[^']*" + re.escape(kernel)
-                       + r"[^']*'.*?(\d+) bytes spill stores, (\d+) bytes spill "
-                       r"loads.*?Used (\d+) registers", text, re.S)
-    if not found:
-        raise AssertionError(f"no ptxas report for {kernel} in {source}.log")
-    return {"registers": max(int(m[2]) for m in found),
-            "spill_bytes": sum(int(m[0]) + int(m[1]) for m in found),
-            "instantiations": len(found),
-            "wgmma_serialized": bool(re.search(
-                r"C75(?:12|20)[^\n]*" + re.escape(kernel), text))}
-
-
-def phase_conv() -> dict:
-    """The 3³ conv kernels: forward, dx (the forward kernel on dy with the
-    taps flipped and Ci/Co swapped) and dW by the workspace and the resident
-    scheme, against the plain versions on the card, at small ragged shapes in
-    fp32 and bf16 (among them a batch of 2 whose voxel tiles straddle the
-    samples at 128 → 128 channels, 128 ↔ 256 channels for a forward and a
-    dx over two 128-wide tiles, Ci and Co off the tile widths, and 27 voxels
-    whose one step leaves all but one CTA of a cluster without a step) and
-    at the policy's two 100³ convs in bf16; the two dW schemes, two
-    independent sums, against each other, and each bitwise equal across two
-    runs; in bf16 the resident scheme also at the largest cluster the card
-    holds, where the small shapes give CTAs no step; the resident scheme's
-    plan (cluster size, clusters at once, waves) at each shape; ptxas's
-    registers and spill of the three wgmma kernels (no spill, no serialized
-    wgmma); then the time of each kernel, of its plain version and of the
-    library call (F.conv3d, conv3d_weight: a yardstick only) beside its
-    bound."""
+def phase_conv() -> None:
+    """The 3³ conv kernels' times at the policy's two 100³ convs in bf16:
+    the forward and dx, dW by the workspace and the resident scheme (with
+    its plan: cluster size, clusters at once, waves), each beside its plain
+    version, the library call (F.conv3d, conv3d_weight: a yardstick only)
+    and its bound."""
     import torch
     import torch.nn.functional as F
     from manigaussian_tpu_torch.ops.conv3d import (conv3d_dw_reference,
                                                    conv3d_dw_resident,
-                                                   conv3d_dw_resident_cluster,
                                                    conv3d_dw_workspace,
                                                    conv3d_forward,
                                                    conv3d_same_reference,
@@ -1296,79 +774,15 @@ def phase_conv() -> dict:
                                                    resident_clusters)
 
     gen = torch.Generator(device="cuda").manual_seed(2)
-    rel = lambda got, ref: ((got.float() - ref).abs().max()
-                            / max(1.0, ref.abs().max().item())).item()
     table = resident_clusters(torch.device("cuda"))
-    widest = max(s for s, held in table.items() if held > 0)
-    log("dw_resident_clusters", clusters_at_once_by_size=table,
-        widest=widest)
-
-    def check(label, dtype, b, d, h, w, ci, co):
-        dt = getattr(torch, dtype)
-        x = torch.randn(b, d, h, w, ci, generator=gen, device="cuda").to(dt)
-        wm = (0.05 * torch.randn(27, ci, co, generator=gen, device="cuda")).to(dt)
-        dy = torch.randn(b, d, h, w, co, generator=gen, device="cuda").to(dt)
-        w_flip = wm.flip(0).transpose(1, 2).contiguous()
-        y_ref = conv3d_same_reference(x, wm)
-        y_scale = max(1.0, y_ref.abs().max().item())
-        errs = {"fwd": rel(conv3d_forward(x, wm), y_ref),
-                "dx": rel(conv3d_forward(dy, w_flip),
-                          conv3d_same_reference(dy, w_flip))}
-        ref = conv3d_dw_reference(x, dy)
-        same, got = {}, {}
-        dw_fns = [("dw_workspace", conv3d_dw_workspace),
-                  ("dw_resident", conv3d_dw_resident)]
-        plan = None
-        if dtype == "bfloat16":
-            plan = dw_resident_plan(b * d * h * w, ci, co, table)
-            dw_fns.append((f"dw_resident_cluster_{widest}",
-                           lambda x, dy: conv3d_dw_resident_cluster(x, dy,
-                                                                    widest)))
-        for name, fn in dw_fns:
-            got[name] = fn(x, dy)
-            errs[name] = rel(got[name], ref)
-            same[name] = torch.equal(fn(x, dy), got[name])
-        # kernel against kernel: each is within tol of the plain version
-        for name in got:
-            if name != "dw_workspace":
-                errs[f"dw_workspace_vs_{name[3:]}"] = rel(got["dw_workspace"],
-                                                         got[name])
-        torch.cuda.synchronize()
-        tol = CONV_TOL[dtype]
-        ok = (errs["fwd"] <= tol["fwd"] and errs["dx"] <= tol["fwd"]
-              and all(errs[n] <= tol["dw"] for n in got)
-              and all(v <= 2 * tol["dw"] for k, v in errs.items()
-                      if k.startswith("dw_workspace_vs_"))
-              and all(same.values()))
-        log("kernel_check", kernel="conv3d", conv=label, dtype=dtype,
-            shape=[b, d, h, w, ci], co=co, compared_with="the plain version",
-            err_over_scale=errs, tol=tol, bitwise_repeatable=same,
-            resident_plan=plan, ok=ok)
-        if not ok:
-            raise AssertionError(f"conv kernels disagree ({label}, {dtype}): "
-                                 f"{errs} {same}")
-        return x, wm, dy, errs, y_scale, max(1.0, ref.abs().max().item()), plan
-
-    for shape in ((1, 5, 6, 7, 8, 16), (2, 9, 10, 11, 24, 40),
-                  (1, 12, 13, 14, 72, 136), (2, 12, 13, 14, 128, 128),
-                  (1, 6, 7, 9, 128, 256), (1, 6, 7, 9, 256, 128),
-                  (1, 3, 3, 3, 64, 128)):
-        for dtype in ("float32", "bfloat16"):
-            check("ragged", dtype, *shape)
-
-    build = {"conv3d_fwd": ptxas_report("conv3d", "conv3d_fwd_wgmma_kernel"),
-             "conv3d_dw": ptxas_report("conv3d", "conv3d_dw_wgmma_kernel"),
-             "conv3d_dw_resident": ptxas_report("conv3d",
-                                                "conv3d_dw_resident_kernel")}
-    log("kernel_build", source="manigaussian_tpu_torch/csrc/conv3d.cu", **build)
-    if any(b["spill_bytes"] or b["wgmma_serialized"] for b in build.values()):
-        raise AssertionError(f"the wgmma conv kernels spill or serialize: {build}")
-
-    records = {}
+    log("dw_resident_clusters", clusters_at_once_by_size=table)
     for label, ci, co in (("final 256→128", 256, 128),
                           ("up0 post-resize 128→128", 128, 128)):
-        x, wm, dy, errs, y_scale, dw_scale, plan = check(
-            label, "bfloat16", 1, 100, 100, 100, ci, co)
+        mk = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+        x = mk(1, 100, 100, 100, ci).to(torch.bfloat16)
+        wm = (0.05 * mk(27, ci, co)).to(torch.bfloat16)
+        dy = mk(1, 100, 100, 100, co).to(torch.bfloat16)
+        plan = dw_resident_plan(x.shape[:4].numel(), ci, co, table)
         log("dw_resident_plan", conv=label, shape=[1, 100, 100, 100, ci],
             co=co, **plan)
         xl, gl = (t.permute(0, 4, 1, 2, 3) for t in (x, dy))   # NCDHW views
@@ -1382,20 +796,20 @@ def phase_conv() -> dict:
                   "dw": el * (x.numel() + dy.numel()) + 4.0 * wm.numel()}
         lib_dw = lambda: torch.nn.grad.conv3d_weight(xl, wl.shape, gl, padding=1)
         cases = (
-            ("conv3d_fwd", "fwd", errs["fwd"] * y_scale, {
+            ("conv3d_fwd", "fwd", {
                 "ms": lambda: conv3d_forward(x, wm),
                 "dx_ms": lambda: conv3d_forward(dy, w_flip),
                 "plain_ms": lambda: conv3d_same_reference(x, wm),
                 "library_ms": lambda: F.conv3d(xl, wl, padding=1)}),
-            ("conv3d_dw", "dw", errs["dw_workspace"] * dw_scale, {
+            ("conv3d_dw", "dw", {
                 "ms": lambda: conv3d_dw_workspace(x, dy),
                 "plain_ms": lambda: conv3d_dw_reference(x, dy),
                 "library_ms": lib_dw}),
-            ("conv3d_dw_resident", "dw", errs["dw_resident"] * dw_scale, {
+            ("conv3d_dw_resident", "dw", {
                 "ms": lambda: conv3d_dw_resident(x, dy),
                 "plain_ms": lambda: conv3d_dw_reference(x, dy),
                 "library_ms": lib_dw}))
-        for name, kind, err, fns in cases:
+        for name, kind, fns in cases:
             times = {key: cuda_ms(fn, iters=2 if key == "plain_ms" else 10,
                                   warmup=1 if key == "plain_ms" else 3)
                      for key, fn in fns.items()}
@@ -1413,26 +827,9 @@ def phase_conv() -> dict:
                 flops=flops, bytes=nbytes[kind], **times, bound_ms=bound_ms,
                 bound_by=bound_by, tflops=flops / times["ms"] / 1e9,
                 factor_vs_bound=times["ms"] / bound_ms,
-                factor_vs_library=times["ms"] / times["library_ms"],
-                **extra, **build.get(name, {}))
-            if ci == 256:   # the record's shape: the larger of the two convs
-                records[name] = {
-                    "name": name, "route": "cuda",
-                    "source": "manigaussian_tpu_torch/csrc/conv3d.cu",
-                    "replaces": {
-                        "conv3d_fwd": "manigaussian_tpu/ops/pallas_conv.py:126",
-                        "conv3d_dw": "manigaussian_tpu/ops/pallas_conv.py:158",
-                        "conv3d_dw_resident": "scripts/r4_pallas_dw_repro.py:120",
-                    }[name],
-                    "launches": None, "max_abs_err": err, **times,
-                    "bound_ms": bound_ms, "bound_by": bound_by,
-                    "shape": f"[1,100,100,100,{ci}] -> {co}, bfloat16", **extra}
-            else:
-                records[name]["up0_128_to_128"] = {**times, "bound_ms": bound_ms,
-                                                   **extra}
+                factor_vs_library=times["ms"] / times["library_ms"], **extra)
         del x, wm, dy, xl, gl, wl, w_flip, cases, fns, lib_dw
         torch.cuda.empty_cache()
-    return records
 
 
 def conv_times(rounds: int = 2) -> dict:
@@ -1562,21 +959,17 @@ def drive_eval(counters: dict, logdir: str, demos: str, args=ACT_ARGS):
     """The port's eval entry point (by default on the mock env from the
     newest checkpoint under `logdir`; `args` its flags after --logdir and
     --demo-root), with the counts set to 0 just before and read just after.
-    Returns (act calls, launches, the result rows, seconds, each act's wall
-    ms to a finished result); raises unless every act returned a finite
-    [1, 9] action."""
+    Returns (act calls, launches, the result rows); raises unless every act
+    returned a finite [1, 9] action."""
     import torch
     from manigaussian_tpu_torch import eval as eval_cli
     from manigaussian_tpu_torch.agents.bc_agent import ManiGaussianBCAgent
 
-    calls, shapes, finite, act_ms = [0], [], [], []
+    calls, shapes, finite = [0], [], []
     orig_act = ManiGaussianBCAgent.act
 
     def counted_act(self, observation):
-        t_start = time.perf_counter()
         res = orig_act(self, observation)
-        torch.cuda.synchronize()
-        act_ms.append((time.perf_counter() - t_start) * 1e3)
         calls[0] += 1
         shapes.append(list(res.continuous_action.shape))
         finite.append(bool(torch.isfinite(res.continuous_action).all()))
@@ -1586,17 +979,14 @@ def drive_eval(counters: dict, logdir: str, demos: str, args=ACT_ARGS):
     try:
         for fn in counters.values():
             fn.launches = 0
-        t0 = time.time()
         rows = eval_cli.main(["--logdir", logdir, "--demo-root", demos,
                               *args])
-        torch.cuda.synchronize()
-        eval_s = time.time() - t0
         launches = {name: fn.launches for name, fn in counters.items()}
     finally:
         ManiGaussianBCAgent.act = orig_act
     if not (all(s == [1, 9] for s in shapes) and all(finite)):
         raise AssertionError(f"act returned {shapes}, finite {finite}")
-    return calls[0], launches, rows, eval_s, act_ms
+    return calls[0], launches, rows
 
 
 def phase_slice(counters: dict) -> dict:
@@ -1611,7 +1001,6 @@ def phase_slice(counters: dict) -> dict:
         base.rlbench, tasks=(task,)))
     m = cfg.method
     demos, logdir = os.path.join(WORK, "demos"), os.path.join(WORK, "logs")
-    t0 = time.time()
     generate_task(demos, task, num_episodes=2, timesteps=16,
                   h=cfg.rlbench.camera_resolution[0],
                   w=cfg.rlbench.camera_resolution[1], nerf_views=1, nerf_hw=8)
@@ -1619,9 +1008,8 @@ def phase_slice(counters: dict) -> dict:
     save_checkpoint(logdir, 0, agent.qfn, cfg=cfg)
     n_params = sum(p.numel() for p in agent.qfn.parameters())
     del agent
-    setup_s = time.time() - t0
 
-    calls, launches, rows, eval_s, act_ms = drive_eval(counters, logdir, demos)
+    calls, launches, rows = drive_eval(counters, logdir, demos)
     expected = m.transformer_depth * calls
     ok = (calls >= 2
           and launches["flash_self_attention_fwd"] == expected
@@ -1633,8 +1021,7 @@ def phase_slice(counters: dict) -> dict:
         heads=[m.latent_heads, m.latent_dim_head], dtype=m.policy_dtype,
         camera=list(cfg.rlbench.camera_resolution), params=n_params,
         act_calls=calls, launches=launches, expected_flash=expected,
-        rows=rows, setup_s=setup_s, eval_s=eval_s, act_ms=act_ms,
-        act_ms_median=statistics.median(act_ms), ok=ok)
+        rows=rows, ok=ok)
     if not ok:
         raise AssertionError("the act/eval slice failed its checks")
     return {"cfg": cfg, "logdir": logdir, "demos": demos, "launches": launches}
@@ -1671,96 +1058,11 @@ def phase_routes(cfg, logdir: str, demos: str) -> None:
         errs[name] = (a - b).abs().max().item()
         scale[name] = b.abs().max().item()
     ok = finite and all(errs[n] <= ROUTE_TOL * max(1.0, scale[n]) for n in errs)
-
-    def act_once(agent):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        agent.act(obs).continuous_action.cpu()
-        return (time.perf_counter() - t0) * 1e3
-
-    for _ in range(3):
-        for a in agents.values():
-            act_once(a)
-    lat = {impl: [] for impl in agents}
-    for _ in range(12):
-        for impl, a in agents.items():
-            lat[impl].append(act_once(a))
-    peak = {}
-    for impl, a in agents.items():
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        a.act(obs).continuous_action.cpu()
-        peak[impl] = {"peak_bytes": torch.cuda.max_memory_allocated(),
-                      "peak_above_weights_bytes":
-                          torch.cuda.max_memory_allocated() - base}
     log("routes", max_abs_diff=errs, ref_scale=scale, tol=ROUTE_TOL,
         tol_rule="max|flash-xla| <= tol * max(1, max|xla|)", finite=finite,
-        act_ms_median={k: statistics.median(v) for k, v in lat.items()},
-        act_ms=lat, memory=peak, ok=ok)
+        ok=ok)
     if not ok:
         raise AssertionError(f"kernel route and plain route disagree: {errs}")
-    phase_profile(lambda: agents["flash"].act(obs).continuous_action.cpu(),
-                  "act on w_geo")
-
-
-def phase_profile(step, label: str, calls: int = 3,
-                  ranges_of: str = "update/", phase: str = "profile") -> dict:
-    """Where one call's time goes: torch.profiler over `calls` calls of
-    `step` (which ends in a device→host copy) — wall time, summed kernel
-    time (the device's busy share, one stream), the device time of the
-    kernels launched inside each named range `ranges_of`* (the backward's:
-    the rest), the kernels and the aten ops with the most device time, all
-    per call."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    step()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            step()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / calls
-    events = prof.key_averages()
-    kernels = sorted((e for e in events if e.device_type == DeviceType.CUDA),
-                     key=lambda e: -e.self_device_time_total)
-    ops = sorted((e for e in events if e.device_type == DeviceType.CPU
-                  and e.key.startswith("aten::")),
-                 key=lambda e: -e.device_time_total)
-    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / calls
-    flash_ms = sum(e.self_device_time_total for e in kernels
-                   if "flash_" in e.key) / 1e3 / calls
-    blend_ms = sum(e.self_device_time_total for e in kernels
-                   if "blend_" in e.key) / 1e3 / calls
-    # device time of the kernels launched inside each range by its thread;
-    # autograd launches the backward's kernels from its own thread, outside
-    # the "update/backward" range, so the backward's share is the rest
-    ranges = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CPU and e.name.startswith(ranges_of):
-            ranges[e.name] = (ranges.get(e.name, 0.0)
-                              + e.device_time_total / 1e3 / calls)
-    if ranges:
-        ranges[ranges_of + "backward (the rest)"] = (device_ms
-                                                     - sum(ranges.values()))
-
-    def rows(evs, attr, n=14):
-        return [[e.key[:90], round(getattr(e, attr) / 1e3 / calls, 4),
-                 e.count / calls] for e in evs[:n]]
-
-    out = dict(route="kernel", label=label, calls=calls, wall_ms_per_call=wall_ms,
-               kernel_ms_per_call=device_ms, range_kernel_ms_per_call=ranges,
-               device_busy_share=device_ms / wall_ms if wall_ms else None,
-               kernels_launched_per_call=sum(e.count for e in kernels) / calls,
-               flash_kernel_ms_per_call=flash_ms,
-               blend_kernel_ms_per_call=blend_ms,
-               top_kernels_ms_count=rows(kernels, "self_device_time_total"),
-               top_aten_ops_device_ms_count=rows(ops, "device_time_total"))
-    log(phase, **out)
-    return out
 
 
 def micro_train_batch(b: int = 2, hw: int = 32, seed: int = 0) -> dict:
@@ -1887,47 +1189,16 @@ VAE_TOL = 1e-4
 EMBED_TOL = 1e-3
 
 
-def vae_flops(hw: int, **dims) -> float:
-    """Operations of one SD VAE forward (models/sd_vae.py, to the last
-    decoder tap) on one hw² image, counted from the shapes on the meta
-    device: 2·outputs·Cin·k² a convolution, 4·N²·C an attention (q·kᵀ and
-    p·v). Norms and activations are not counted."""
-    import torch
-    from manigaussian_tpu_torch.models import sd_vae as sv
-    total = [0.0]
-
-    def conv_hook(mod, inp, out):
-        total[0] += 2.0 * out.numel() * mod.weight[0].numel()
-
-    def attn_hook(mod, inp, out):
-        b, c, h, w = inp[0].shape
-        total[0] += 4.0 * b * (h * w) ** 2 * c
-
-    with torch.device("meta"):
-        model = sv.SDVae(**dims)
-        x = torch.zeros(1, 3, hw, hw)
-    for mod in model.modules():
-        if isinstance(mod, torch.nn.Conv2d):
-            mod.register_forward_hook(conv_hook)
-        elif isinstance(mod, sv.AttnBlock):
-            mod.register_forward_hook(attn_hook)
-    with torch.no_grad():
-        model(x)
-    return total[0]
-
-
-def phase_sem_check() -> dict:
+def phase_sem_check() -> None:
     """The semantic tier's frozen tower on the card. (1) The SD VAE at ch 32
     on two 64² images, fp32, card against CPU: the latent and the encoder
     and decoder taps within VAE_TOL of their scale; the GT-embed pipeline
     (`embed_fn`: resize → VAE → tap → resize → PCA) on two 32² views at a
     64² feature size, within EMBED_TOL up to a sign per image and channel.
-    (2) At SD v1 width (random-init, ch 128) on one 512² image: the device
-    time of the forward (summed kernel durations, and the host loop's
-    events), its TFLOP/s on the operations `vae_flops` counts, the same with
-    cuDNN's TF32 convolutions, and the peak memory of the forward above what
-    was allocated before it. (3) `embed_fn`'s wall time for a batch of one
-    128² view, the prefetch thread's work a `w_geo_sem_dyna` step."""
+    (2) At SD v1 width (random-init, ch 128) on one 512² image: the last
+    decoder tap finite, of its shape. (3) `embed_fn` on a batch of one 128²
+    view, the prefetch thread's work a `w_geo_sem_dyna` step: a finite
+    float32 embedding of the view's size."""
     import copy
     import numpy as np
     import torch
@@ -1964,42 +1235,15 @@ def phase_sem_check() -> dict:
     ex = fd.SDVaeFeatureExtractor(None, device="cuda")
     img = (torch.rand(1, 3, ex.feature_hw, ex.feature_hw, generator=gen)
            * 2 - 1).cuda()
-
-    def forward():
-        with torch.no_grad():
-            return ex.model(img)["decoder_features"][-1]
-
-    flops = vae_flops(ex.feature_hw)
-    weights = sum(p.numel() * p.element_size() for p in ex.model.parameters())
-    torch.cuda.synchronize()
-    before = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    tap = forward()
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated() - before
+    with torch.no_grad():
+        tap = ex.model(img)["decoder_features"][-1]
     tap_ok = (list(tap.shape) == [1, 512, ex.feature_hw // 4,
                                   ex.feature_hw // 4]
               and bool(torch.isfinite(tap).all()))
     del tap
-    dev_ms = device_ms(forward, iters=5, warmup=1)
-    host_ms = cuda_ms(forward, iters=5, warmup=1)
-    # the same forward with cuDNN's TF32 convolutions, PyTorch's default
-    # outside this script (which turns TF32 off for its comparisons)
-    torch.backends.cudnn.allow_tf32 = True
-    try:
-        tf32_ms = device_ms(forward, iters=5, warmup=1)
-    finally:
-        torch.backends.cudnn.allow_tf32 = False
-
-    embed = ex.embed_fn(3)
     view = np.random.default_rng(2).uniform(size=(1, 128, 128, 3)).astype(
         np.float32)
-    out = embed(view)
-    wall = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        out = embed(view)
-        wall.append((time.perf_counter() - t0) * 1e3)
+    out = ex.embed_fn(3)(view)
     embed_ok = (out.shape == (1, 128, 128, 3) and out.dtype == np.float32
                 and bool(np.isfinite(out).all()))
     ok = small_ok and tap_ok and embed_ok
@@ -2007,19 +1251,12 @@ def phase_sem_check() -> dict:
         rel_err=errs, tol=VAE_TOL,
         embed_rel_err_up_to_sign=embed_err, embed_tol=EMBED_TOL,
         full=f"SDVae ch 128 (random-init), 1×{ex.feature_hw}², fp32",
-        tflop=flops / 1e12, device_ms=dev_ms, host_loop_ms=host_ms,
-        tflops_per_s=flops / dev_ms / 1e9,
-        fp32_bound_ms=flops / PEAK_FLOPS["float32"] * 1e3,
-        device_ms_cudnn_tf32=tf32_ms,
-        weight_bytes=weights, peak_bytes_of_the_forward=peak,
-        embed_fn_wall_ms=wall, embed_fn_wall_ms_median=statistics.median(wall),
-        ok=ok)
+        full_tap_ok=tap_ok, embed_fn_128_ok=embed_ok, ok=ok)
     if not ok:
         raise AssertionError(f"the SD VAE on the card failed its checks: "
                              f"{errs} {embed_err}")
-    del ex, embed, img
+    del ex, img
     torch.cuda.empty_cache()
-    return {"device_ms": dev_ms, "flops": flops}
 
 
 # the RN50 text tower on the card against the CPU, fp32 (TF32 off): each
@@ -2028,13 +1265,11 @@ def phase_sem_check() -> dict:
 CLIP_TOL = 1e-4
 
 
-def phase_clip_check() -> dict:
+def phase_clip_check() -> None:
     """The CLIP RN50 text tower (`models/clip_text.py`) at its published
     width (width 512, 12 layers, 8 heads, context 77, vocab 49408, embed
     1024) from seeded random weights: the card against the CPU on fixed
-    token ids (the sentence and the token embeddings), then one encode's
-    time on the card (host clock around the call and its copy to the host,
-    and the device reading)."""
+    token ids (the sentence and the token embeddings)."""
     import copy
     import torch
     from manigaussian_tpu_torch.models import clip_text as ct
@@ -2053,33 +1288,16 @@ def phase_clip_check() -> dict:
         got = gpu(ids.cuda())
     errs = {name: ((g.cpu() - w).abs().max() / w.abs().max()).item()
             for name, g, w in zip(("sentence", "tokens"), got, want)}
-
-    def encode():
-        with torch.no_grad():
-            sent, toks = gpu(ids[:1].cuda())
-        return sent.cpu(), toks.cpu()
-
-    wall = []
-    for _ in range(3):
-        encode()
-    for _ in range(10):
-        t0 = time.perf_counter()
-        encode()
-        wall.append((time.perf_counter() - t0) * 1e3)
-    dev = device_ms(lambda: gpu(ids[:1].cuda()), iters=10, warmup=2)
     ok = (all(e <= CLIP_TOL for e in errs.values())
           and list(got[0].shape) == [2, 1024] and list(got[1].shape) == [2, 77, 512]
           and all(bool(torch.isfinite(t).all()) for t in got))
     log("clip_check", tower="CLIP RN50 text, width 512, 12 layers, 8 heads, "
         "context 77, vocab 49408, embed 1024, seeded random weights, fp32",
         params=sum(p.numel() for p in cpu.parameters()), rel_err=errs,
-        tol=CLIP_TOL, encode_wall_ms=wall,
-        encode_wall_ms_median=statistics.median(wall),
-        encode_device_ms=dev, ok=ok)
+        tol=CLIP_TOL, ok=ok)
     if not ok:
         raise AssertionError(f"the CLIP text tower on the card disagrees with "
                              f"the CPU: {errs}")
-    return {"encode_ms": statistics.median(wall)}
 
 
 TASK = "open_drawer"
@@ -2106,6 +1324,12 @@ def train_config(variant: str, overrides=()):
 
 # GNFACTOR_BC: the NeRF renderer in place of the splat world model
 GNF_OVERRIDES = ["method.name=GNFACTOR_BC"]
+# `gnfactor_bc` as the train entry point builds it from `--variant w_geo`,
+# conf/method/GNFACTOR_BC.yaml and its published d_embed 512
+GNF_FULL_OVERRIDES = [*GNF_OVERRIDES,
+                      "method.neural_renderer.renderer_type=nerf",
+                      "method.neural_renderer.foundation_model_name=diffusion",
+                      "method.neural_renderer.d_embed=512"]
 
 
 def expected_launches(m, step: int) -> dict:
@@ -2140,19 +1364,6 @@ def expected_vis_launches(m) -> dict:
             "conv3d_dw": 0, "conv3d_dw_resident": 0, "fused_lamb": 0}
 
 
-def timed_calls(fn, wall_ms: list, cpu_ms: list):
-    """`fn`, appending each call's wall time and the calling thread's CPU
-    time (`time.thread_time`: Python, launches, and the spin-wait of the
-    copy to the host) to the two lists, in ms."""
-    def timed(*args):
-        t_wall, t_cpu = time.perf_counter(), time.thread_time()
-        out = fn(*args)
-        cpu_ms.append((time.thread_time() - t_cpu) * 1e3)
-        wall_ms.append((time.perf_counter() - t_wall) * 1e3)
-        return out
-    return timed
-
-
 def phase_train_slice(counters: dict, variant: str = "w_geo", overrides=(),
                       steps: int = 6, demos: str = None,
                       label: str = "train_slice") -> dict:
@@ -2160,16 +1371,13 @@ def phase_train_slice(counters: dict, variant: str = "w_geo", overrides=(),
     (main()), then a resume from its checkpoint for 2 more steps. The counts
     are set to 0 just before the first run and read just after it: the
     steps' launches and the recon render's at step 0 (`render_for_vis`,
-    `expected_vis_launches`). Also timed: each step's wait in
-    `next(batches)` (the prefetch thread, which in the semantic tiers also
-    runs the frozen tower), each GT-embedding call there, and the recon
-    render (its image finite); recorded: the feature extractors the entry
-    point built (one a run), and whether the recon panel was written."""
+    `expected_vis_launches`; its image finite). Recorded: the feature
+    extractors the entry point built (one a run), and whether the recon
+    panel was written."""
     import numpy as np
     import torch
     from manigaussian_tpu_torch import train as train_cli
     from manigaussian_tpu_torch.agents.bc_agent import ManiGaussianBCAgent
-    from manigaussian_tpu_torch.data.pipeline import BatchIterator
     from manigaussian_tpu_torch.data.synthetic import generate_task
     from manigaussian_tpu_torch.models import foundation
     from manigaussian_tpu_torch.rendering.neural_renderer import NeuralRenderer
@@ -2178,41 +1386,25 @@ def phase_train_slice(counters: dict, variant: str = "w_geo", overrides=(),
     cfg = train_config(variant, overrides)
     m = cfg.method
     logdir = os.path.join(WORK, f"train_logs_{label}_{variant}_{m.name}")
-    t0 = time.time()
     if demos is None:
         demos = os.path.join(WORK, "train_demos")
         generate_task(demos, TASK, num_episodes=2, timesteps=16,
                       h=cfg.rlbench.camera_resolution[0],
                       w=cfg.rlbench.camera_resolution[1], nerf_views=3,
                       nerf_hw=m.neural_renderer.image_height)
-    setup_s = time.time() - t0
 
-    per_step, expect, step_ms, metrics_seen = [], [], [], []
+    per_step, expect, metrics_seen = [], [], []
     overflow, rendered = [], []     # per step, per render: (splats, gaussians)
-    wait_ms, extractors = [], []
-    embed_wall_ms, embed_cpu_ms = [], []   # per call, in the calling thread
-    vis = []          # per recon render: launches, wall ms, image
+    extractors = []
+    vis = []          # per recon render: launches, image
     orig_update = ManiGaussianBCAgent.update
     orig_vis = ManiGaussianBCAgent.render_for_vis
     orig_render = NeuralRenderer._render
-    orig_next = BatchIterator.__next__
     orig_create = foundation.create_feature_extractor
-
-    def timed_next(self):
-        t_start = time.perf_counter()
-        batch = orig_next(self)
-        wait_ms.append((time.perf_counter() - t_start) * 1e3)
-        return batch
 
     def recorded_create(*args, **kwargs):
         ex = orig_create(*args, **kwargs)
         extractors.append(type(ex).__name__)
-        make = ex.embed_fn
-
-        def timed_embed_fn(d_embed):
-            return timed_calls(make(d_embed), embed_wall_ms, embed_cpu_ms)
-
-        ex.embed_fn = timed_embed_fn
         return ex
 
     def watched_render(self, params, cameras, tile_mesh=None):
@@ -2222,13 +1414,9 @@ def phase_train_slice(counters: dict, variant: str = "w_geo", overrides=(),
 
     def counted_vis(self, batch):
         before = {k: fn.launches for k, fn in counters.items()}
-        torch.cuda.synchronize()
-        t_start = time.perf_counter()
         res = orig_vis(self, batch)
-        torch.cuda.synchronize()
         rendered.clear()        # the recon render's frame is no step's
-        vis.append({"wall_ms": (time.perf_counter() - t_start) * 1e3,
-                    "launches": {k: fn.launches - before[k]
+        vis.append({"launches": {k: fn.launches - before[k]
                                  for k, fn in counters.items()},
                     "shape": list(res.render_novel.shape),
                     "finite": bool(torch.isfinite(res.render_novel).all())})
@@ -2237,11 +1425,7 @@ def phase_train_slice(counters: dict, variant: str = "w_geo", overrides=(),
     def counted_update(self, batch, generator, draws=None):
         before = {k: fn.launches for k, fn in counters.items()}
         expect.append(expected_launches(m, self.step))
-        torch.cuda.synchronize()
-        t_start = time.perf_counter()
         out = orig_update(self, batch, generator, draws)
-        float(out["total_loss"])                 # device→host copy
-        step_ms.append((time.perf_counter() - t_start) * 1e3)
         per_step.append({k: fn.launches - before[k] for k, fn in counters.items()})
         metrics_seen.append({k: float(v) for k, v in out.items()})
         overflow.append([[float(v) for v in pair] for pair in rendered])
@@ -2253,28 +1437,20 @@ def phase_train_slice(counters: dict, variant: str = "w_geo", overrides=(),
     ManiGaussianBCAgent.update = counted_update
     ManiGaussianBCAgent.render_for_vis = counted_vis
     NeuralRenderer._render = watched_render
-    BatchIterator.__next__ = timed_next
     foundation.create_feature_extractor = recorded_create
     try:
         for fn in counters.values():
             fn.launches = 0
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.time()
         train_cli.main([*argv, f"framework.training_iterations={steps}"])
-        torch.cuda.synchronize()
-        train_s = time.time() - t0
         launches = {k: fn.launches for k, fn in counters.items()}
-        peak = torch.cuda.max_memory_allocated()
         ckpts = list_checkpoints(os.path.join(logdir, "seed0"))
         n_first, n_vis = len(per_step), len(vis)
         train_cli.main([*argv, f"framework.training_iterations={steps + 1}",
                         "framework.load_existing_weights=true"])
-        torch.cuda.synchronize()
     finally:
         ManiGaussianBCAgent.update = orig_update
         ManiGaussianBCAgent.render_for_vis = orig_vis
         NeuralRenderer._render = orig_render
-        BatchIterator.__next__ = orig_next
         foundation.create_feature_extractor = orig_create
 
     finite = all(np.isfinite(v) for row in metrics_seen for v in row.values())
@@ -2299,7 +1475,6 @@ def phase_train_slice(counters: dict, variant: str = "w_geo", overrides=(),
           and vis[0]["shape"] == [1, *img, 3] and vis[0]["finite"]
           and launches == {k: sum(row[k] for row in expect[:n_first])
                            + vis[0]["launches"][k] for k in counters})
-    warm = step_ms[2:n_first]
     log(label, config=variant, overrides=list(overrides),
         voxel=m.voxel_sizes[0],
         latents=[m.num_latents, m.latent_dim], depth=m.transformer_depth,
@@ -2312,22 +1487,13 @@ def phase_train_slice(counters: dict, variant: str = "w_geo", overrides=(),
         launches=launches, launches_per_step=per_step, expected_per_step=expect,
         losses_first=metrics_seen[0], losses_last=metrics_seen[n_first - 1],
         overflow_per_step_and_render=overflow,
-        step_ms=step_ms, step_ms_median_after_2=statistics.median(warm),
-        next_batch_wait_ms=wait_ms,
-        next_batch_wait_ms_median_after_2=statistics.median(
-            wait_ms[2:n_first]),
         extractors=extractors, recon_render=vis,
         recon_render_expected_launches=expected_vis_launches(m),
-        recon_panel_written=panel,
-        embed_wall_ms=embed_wall_ms, embed_cpu_ms=embed_cpu_ms,
-        embed_wall_ms_median=statistics.median(embed_wall_ms or [0.0]),
-        embed_cpu_ms_median=statistics.median(embed_cpu_ms or [0.0]),
-        peak_device_bytes=peak, setup_s=setup_s, train_s=train_s, ok=ok)
+        recon_panel_written=panel, ok=ok)
     if not ok:
         raise AssertionError(f"the {variant} training slice failed its checks")
-    return {"launches": launches, "step_ms": statistics.median(warm),
-            "demos": demos, "logdir": logdir, "cfg": cfg,
-            "extractors": extractors, "peak": peak,
+    return {"launches": launches, "demos": demos, "logdir": logdir,
+            "cfg": cfg, "extractors": extractors,
             "losses_first": metrics_seen[0]}
 
 
@@ -2343,7 +1509,7 @@ def phase_tier_slice(counters: dict, demos: str, variant: str, overrides,
     tr = phase_train_slice(counters, variant, overrides, steps=steps,
                            demos=demos, label=label)
     m = tr["cfg"].method
-    calls, launches, rows, eval_s, act_ms = drive_eval(
+    calls, launches, rows = drive_eval(
         counters, os.path.join(tr["logdir"], "seed0"), demos)
     expect = {k: 0 for k in counters} | {
         "flash_self_attention_fwd": m.transformer_depth * calls,
@@ -2351,9 +1517,7 @@ def phase_tier_slice(counters: dict, demos: str, variant: str, overrides,
     ok = (calls >= 2 and launches == expect and len(rows) == 1
           and "eval_envs/return" in rows[0])
     log(act_label, config=variant, conv_impl=m.policy_conv_impl,
-        act_calls=calls, launches=launches, expected=expect, rows=rows,
-        eval_s=eval_s, act_ms=act_ms, act_ms_median=statistics.median(act_ms),
-        ok=ok)
+        act_calls=calls, launches=launches, expected=expect, rows=rows, ok=ok)
     if not ok:
         raise AssertionError(f"act on the {variant} checkpoint failed its "
                              "checks")
@@ -2361,17 +1525,14 @@ def phase_tier_slice(counters: dict, demos: str, variant: str, overrides,
 
 
 def phase_train_routes(demos: str, label: str, variant: str, overrides,
-                       routes: dict, profile: str, vis: bool = False) -> dict:
+                       routes: dict, vis: str = None) -> None:
     """One batch from the same weights through two routes (`routes`: name →
     fields of the method config and of its renderer), dropout 0, the same
     draws (and, in the semantic tiers, the same `gt_embed`, made once by the
     tier's extractor on the card): loss within ROUTE_TOL·max(1, |loss|),
-    global gradient norm within ROUTE_TOL relative; the step time
-    (alternating) and the act latency of each route; then torch.profiler
-    over 2 training steps of route `profile`. With `vis`, first the recon
-    render (`render_for_vis`) of route `profile` called directly, outside
-    the runner's catch: its wall time and a finite image of the view's
-    size.
+    global gradient norm within ROUTE_TOL relative. With `vis`, a route,
+    first the recon render (`render_for_vis`) of that route called directly,
+    outside the runner's catch: a finite image of the view's size.
     """
     import numpy as np
     import torch
@@ -2413,19 +1574,8 @@ def phase_train_routes(demos: str, label: str, variant: str, overrides,
     first, second = routes
     vis_rec = None
     if vis:
-        a = agents[profile]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        img = a.render_for_vis(batch).render_novel
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-        t0 = time.perf_counter()
-        img = a.render_for_vis(batch).render_novel
-        torch.cuda.synchronize()
-        nr = cfg.method.neural_renderer
-        vis_rec = {"wall_ms_first": wall,
-                   "wall_ms": (time.perf_counter() - t0) * 1e3,
-                   "shape": list(img.shape),
+        img = agents[vis].render_for_vis(batch).render_novel
+        vis_rec = {"shape": list(img.shape),
                    "finite": bool(torch.isfinite(img).all())}
         if vis_rec["shape"] != [1, nr.image_height, nr.image_width, 3] or \
                 not vis_rec["finite"]:
@@ -2441,195 +1591,19 @@ def phase_train_routes(demos: str, label: str, variant: str, overrides,
                                             if p.grad is not None)))
     loss_diff = abs(loss[first] - loss[second])
     gnorm_rel = abs(gnorm[first] - gnorm[second]) / gnorm[second]
-
-    def step(a):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        float(a.update(batch, torch.Generator().manual_seed(0),
-                       draws=draws)["total_loss"])
-        return (time.perf_counter() - t0) * 1e3
-
-    def act(a):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        a.act(batch).continuous_action.cpu()
-        return (time.perf_counter() - t0) * 1e3
-
-    for _ in range(2):
-        for a in agents.values():
-            step(a)
-            act(a)
-    lat = {r: [] for r in agents}
-    act_lat = {r: [] for r in agents}
-    for _ in range(5):
-        for r, a in agents.items():
-            lat[r].append(step(a))
-    for _ in range(8):
-        for r, a in agents.items():
-            act_lat[r].append(act(a))
     ok = (all(np.isfinite(v) for v in loss.values())
           and loss_diff <= ROUTE_TOL * max(1.0, abs(loss[second]))
           and gnorm_rel <= ROUTE_TOL)
     log(label, config=variant, overrides=list(overrides),
         routes={r: {**kw[0], **kw[1]} for r, kw in routes.items()},
         loss=loss, loss_heads=heads, loss_abs_diff=loss_diff, grad_norm=gnorm,
-        grad_norm_rel_diff=gnorm_rel, tol=ROUTE_TOL,
-        step_ms_median={r: statistics.median(v) for r, v in lat.items()},
-        step_ms=lat,
-        act_ms_median={r: statistics.median(v) for r, v in act_lat.items()},
-        act_ms=act_lat, render_for_vis=vis_rec, ok=ok)
+        grad_norm_rel_diff=gnorm_rel, tol=ROUTE_TOL, render_for_vis=vis_rec,
+        ok=ok)
     if not ok:
         raise AssertionError(f"the training routes of {label} disagree: "
                              f"{loss} {gnorm}")
-    kept = agents[profile]
     del agents
     torch.cuda.empty_cache()
-    prof = phase_profile(lambda: float(kept.update(
-        batch, torch.Generator().manual_seed(0), draws=draws)["total_loss"]),
-        f"{variant} {cfg.method.name} training step, route {profile}", calls=2)
-    return {"profile": prof, "step_ms": statistics.median(lat[profile]),
-            "act_ms": statistics.median(act_lat[profile]), "vis": vis_rec,
-            "batch": batch, "cfg": cfg}
-
-
-def phase_nerf_parts(batch, cfg) -> dict:
-    """The GNFACTOR_BC NeRF's part of a training step, alone, at full width
-    (`w_geo`: the renderer's 512 rays × (64 + 96) samples, MLP 512 × 5 in
-    fp32, the bf16 100³ × 128 voxel features with a gradient), on one
-    batch's target view: the device time of its loss forward, of forward
-    and backward with its kernels by name, and of the trilinear gather's
-    backward alone — the deterministic scatter (stable sort +
-    segment_reduce) of both passes' 8 corners a point into the volume, at
-    the corner indices the forward computed; the MLP's operations and its
-    fp32 bound."""
-    import torch
-    from manigaussian_tpu_torch.agents.qfunction import renderer_from_config
-    from manigaussian_tpu_torch.models.blocks import initialize
-    from manigaussian_tpu_torch.ops.voxelize import segment_sum
-    from manigaussian_tpu_torch.rendering import nerf_renderer as nrm
-
-    m = dataclasses.replace(cfg.method, neural_renderer=dataclasses.replace(
-        cfg.method.neural_renderer, renderer_type="nerf",
-        use_dynamic_field=False))
-    nr = m.neural_renderer
-    r = initialize(renderer_from_config(m), torch.Generator().manual_seed(0))
-    r = r.cuda().train()
-    v = m.voxel_sizes[0]
-    d0 = (torch.randn(1, v, v, v, nr.d_latent,
-                      generator=torch.Generator().manual_seed(1)) * 0.1
-          ).to(torch.bfloat16).cuda().requires_grad_()
-    t = lambda k: torch.as_tensor(batch[k][:1], device="cuda").float()
-    rgb, pose, intr = (t("nerf_target_rgb"), t("nerf_target_pose"),
-                       t("nerf_target_intrinsic"))
-    emb = rgb.new_zeros(*rgb.shape[:3], nr.d_embed)
-    gen = lambda: torch.Generator().manual_seed(0)
-
-    captured = []
-    orig = nrm._CornerGather
-
-    class Capture(orig):
-        @staticmethod
-        def forward(ctx, table, idx):
-            captured.append(idx)
-            return orig.forward(ctx, table, idx)
-
-    nrm._CornerGather = Capture
-    try:
-        with torch.no_grad():
-            r(d0, rgb, pose, intr, emb, gen())
-    finally:
-        nrm._CornerGather = orig
-
-    def fwd():
-        with torch.no_grad():
-            return r(d0, rgb, pose, intr, emb, gen()).loss
-
-    def fwd_bwd():
-        d0.grad = None
-        r.zero_grad(set_to_none=True)
-        r(d0, rgb, pose, intr, emb, gen()).loss.backward()
-
-    n_vox = d0.shape[0] * v ** 3
-    rows = [torch.randn(i.numel(), nr.d_latent, device="cuda") for i in captured]
-    scatter = lambda: [segment_sum(g, i, n_vox) for g, i in zip(rows, captured)]
-    kernels = {}
-    fb_ms = device_ms(fwd_bwd, iters=5, warmup=2, by_kernel=kernels)
-    fwd_ms = device_ms(fwd, iters=5, warmup=2)
-    scatter_ms = device_ms(scatter, iters=5, warmup=2)
-    mlp = r.nerf.mlp
-    macs = sum(p.numel() for n_, p in mlp.named_parameters()
-               if n_.endswith("weight"))
-    # the coarse pass's samples, then the fine pass's (coarse ∪ fine)
-    points = nr.ray_chunk_size * (2 * nr.n_coarse + nr.n_fine)
-    mlp_flops = 3 * 2 * macs * points            # forward + two backward GEMMs
-    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
-    out = dict(rays=nr.ray_chunk_size, samples=[nr.n_coarse, nr.n_fine,
-                                               nr.n_fine_depth],
-               points=points, corner_rows=[int(i.numel()) for i in captured],
-               voxels=n_vox, channels=nr.d_latent,
-               mlp=[mlp.lin_in.weight.shape[0], len(mlp.blocks)],
-               forward_device_ms=fwd_ms, fwd_bwd_device_ms=fb_ms,
-               trilinear_scatter_device_ms=scatter_ms,
-               mlp_tflop_fwd_bwd=mlp_flops / 1e12,
-               mlp_fp32_bound_ms=mlp_flops / PEAK_FLOPS["float32"] * 1e3,
-               top_kernels_ms=[[k, round(x, 4)] for k, x in top])
-    log("nerf_parts", **out)
-    del r, d0, rows, captured
-    torch.cuda.empty_cache()
-    return out
-
-
-def step_times(steps: int = 12, acts: int = 14) -> dict:
-    """The one-process `w_geo` training step and act at full width, batch 1,
-    through `create_agent`, `update` and `act` only (the public path, the
-    same in older checkouts), host clock around calls that end in a
-    device→host copy or a synchronize; medians after 2 steps / 4 acts. For
-    an A/B of two checkouts in one call (parent, change, change, parent)."""
-    import statistics
-
-    import numpy as np
-    import torch
-    from manigaussian_tpu_torch.agents.registry import create_agent
-    agent = create_agent(train_config("w_geo"), device="cuda", seed=0)
-    rng = np.random.default_rng(0)
-    f, b, hw = np.float32, 1, 128
-    batch = {
-        "rgb": rng.uniform(size=(b, 1, hw, hw, 3)).astype(f),
-        "pcd": (np.array([0.2, 0.0, 1.1]) + np.array([0.25, 0.35, 0.1])
-                * rng.standard_normal((b, 1, hw, hw, 3))).astype(f),
-        "low_dim_state": rng.standard_normal((b, 4)).astype(f),
-        "lang_goal_emb": (0.1 * rng.standard_normal((b, 1024))).astype(f),
-        "lang_token_embs": (0.1 * rng.standard_normal((b, 77, 512))).astype(f),
-        "trans_action_indicies": np.array([[50, 40, 60]] * b, np.int32),
-        "rot_grip_action_indicies": np.array([[10, 20, 30, 1]] * b, np.int32),
-        "ignore_collisions": np.ones((b, 1), np.int32),
-        "gripper_pose": np.tile(np.array([0.2, 0, 1.1, 0, 0, 0, 1.0], f), (b, 1)),
-        "action": np.zeros((b, 8), f),
-        "nerf_target_rgb": rng.uniform(size=(b, hw, hw, 3)).astype(f),
-        "nerf_target_pose": np.tile(np.eye(4, dtype=f), (b, 1, 1)),
-        "nerf_target_intrinsic": np.tile(np.array(
-            [[110.0, 0, 64], [0, 110.0, 64], [0, 0, 1]], f), (b, 1, 1)),
-    }
-    gen = torch.Generator().manual_seed(1)
-    step_ms, act_ms = [], []
-    for _ in range(steps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        float(agent.update(batch, gen)["total_loss"])
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-    obs = {k: batch[k] for k in ("rgb", "pcd", "low_dim_state",
-                                 "lang_goal_emb", "lang_token_embs")}
-    for _ in range(acts):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        agent.act(obs)
-        torch.cuda.synchronize()
-        act_ms.append((time.perf_counter() - t0) * 1e3)
-    out = {"step_ms_median": statistics.median(step_ms[2:]),
-           "act_ms_median": statistics.median(act_ms[4:]),
-           "step_ms": step_ms, "act_ms": act_ms}
-    log("step_times", config="w_geo", batch=1, tree=ROOT, **out)
-    return out
 
 
 DINO_TOL = 1e-4
@@ -2668,19 +1642,13 @@ def phase_dino_dir() -> dict:
             and isinstance(cpu, DinoV2DirExtractor)):
         raise AssertionError("the DINOv2 directory did not load as one")
     fc = card(rgb.cuda())
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fc = card(rgb.cuda())
-    torch.cuda.synchronize()
-    call_ms = (time.perf_counter() - t0) * 1e3
     fp = cpu(rgb)
     scale = float(fp.abs().max())
     err = float((fc.cpu() - fp).abs().max())
     ok = (tuple(fc.shape) == (2, 128, 128, 64) and bool(torch.isfinite(fc).all())
           and err <= DINO_TOL * max(1.0, scale))
     log("dino_dir", files=sorted(os.listdir(path)), shape=list(fc.shape),
-        max_abs_err_card_vs_cpu=err, scale=scale, tol=DINO_TOL,
-        call_ms=call_ms, ok=ok)
+        max_abs_err_card_vs_cpu=err, scale=scale, tol=DINO_TOL, ok=ok)
     if not ok:
         raise AssertionError(f"dino_dir: card against CPU {err} (scale "
                              f"{scale}), shape {tuple(fc.shape)}")
@@ -2742,17 +1710,11 @@ def phase_dp_slice(demos: str) -> dict:
     window of 32 tiles, one launch each way) times DP_STEPS, plus the recon
     render's on rank 0; every rank's parameters equal to the others' bit for
     bit after the last step; the first step's losses of each sharded run
-    within DP_TOL of the one-process run's. Logged: each run's step time
-    (its CSV's last step), each rank's peak memory, the backend, the card's
-    name and power limit. Two ranks share one card here: these times are
-    not a scaling figure."""
+    within DP_TOL of the one-process run's."""
     import csv
     import numpy as np
     cfg = train_config("w_geo")
     m = cfg.method
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60).stdout.strip()
     base = ["-m", "manigaussian_tpu_torch.train", "--variant", "w_geo",
             "--demo-root", demos, *TRAIN_OVERRIDES, "replay.batch_size=2",
             f"framework.training_iterations={DP_STEPS}"]
@@ -2764,9 +1726,7 @@ def phase_dp_slice(demos: str) -> dict:
     runs, launches_by_run = {}, {}
     for name, flags in DP_RUNS:
         logdir = os.path.join(WORK, f"dp_{name}")
-        t0 = time.time()
         rc, out, err = run_cli([*base, "--logdir", logdir, *flags], 900)
-        wall = time.time() - t0
         if rc:
             raise AssertionError(f"dp_slice {name}: exit {rc}\n{out[-3000:]}"
                                  f"\n{err[-3000:]}")
@@ -2781,11 +1741,9 @@ def phase_dp_slice(demos: str) -> dict:
         runs[name] = {
             "world": world, "backend": ranks[0]["backend"] if ranks else None,
             "first_step": {k: float(rows[0][k]) for k in DP_HEADS},
-            "step_ms": [1e3 / float(r["steps_per_s"]) for r in rows[1:]],
-            "peak_bytes": [r["peak_bytes"] for r in ranks],
             "params_equal_across_ranks": [r["params_equal_across_ranks"]
                                           for r in ranks],
-            "launches": got, "wall_s": wall}
+            "launches": got}
         launches_by_run[name] = got[0] if got else {}
         ok = (len(ranks) == world >= 1 and len(rows) == DP_STEPS and finite
               and got == expect
@@ -2793,7 +1751,7 @@ def phase_dp_slice(demos: str) -> dict:
                       for r in ranks)
               and (world == 1 or all(r["params_equal_across_ranks"]
                                      for r in ranks)))
-        log("dp_slice", run=name, flags=flags, card=smi, **runs[name],
+        log("dp_slice", run=name, flags=flags, **runs[name],
             expected_launches=expect, csv_rows=len(rows), finite=finite, ok=ok)
         if not ok:
             raise AssertionError(f"dp_slice {name}: {runs[name]}, expected "
@@ -2805,7 +1763,7 @@ def phase_dp_slice(demos: str) -> dict:
              for name, r in runs.items() if name != "one_process"}
     worst = max(max(d.values()) for d in diffs.values())
     ok = worst <= DP_TOL
-    log("dp_slice", check="first_step_losses_vs_one_process", card=smi,
+    log("dp_slice", check="first_step_losses_vs_one_process",
         rel_diff=diffs, worst=worst, tol=DP_TOL,
         rule="|x − x_one| ≤ tol·max(1, |x_one|)", ok=ok)
     if not ok:
@@ -2864,11 +1822,9 @@ def gnf_steps(devices=("cuda", "cpu"), steps: int = 2) -> dict:
         for i in range(steps):
             opt = agent.optimizer()
             before = [p.detach().clone() for p in opt.params]
-            t0 = time.perf_counter()
             res = agent.update(batch, torch.Generator().manual_seed(i),
                                draws=draws)
             row = {k: float(res[k]) for k in heads}
-            row["step_s"] = time.perf_counter() - t0
             lr = opt.lr(opt.count - 1) if callable(opt.lr) else opt.lr
             leaves = []
             with torch.no_grad():
@@ -2964,22 +1920,19 @@ def queued_ms(fn, iters: int) -> float:
     raise AssertionError("the host never got ahead of the device")
 
 
-def phase_lamb(rounds: int = 3, iters: int = 10) -> dict:
+def phase_lamb(rounds: int = 3, iters: int = 10) -> None:
     """The multi-tensor LAMB kernel (`Lamb.step` on the card, which every
-    LAMB training step of the port runs) against its plain loop
+    LAMB training step of the port runs) beside its plain loop
     (`lamb_step_reference`: ~25 eager kernels a leaf, the CPU's route) at
-    `gnfactor_bc`'s leaves (the benchmark cell's configuration file: 178
-    float32 leaves, 40.06 M elements), random p and a fresh gradient a step.
-    Three steps of each from the same state: after each, m and v equal bit
-    for bit, and p within the card tests' tolerance (1e-5 of the summed
-    |Δp| plus 4 ulp of p). Then `rounds` rounds of loop, kernel, kernel,
-    loop, each over `iters` steps: kernels launched a step and the device
-    time a step from torch.profiler (`device_ms`: the kernels' mean record
-    duration times the kernels launched), and the host clock ending in a
-    synchronize; for the kernel also CUDA events around steps queued ahead
-    of the device (`queued_ms`, the record's `ms`). The bound: bytes, p, g,
-    m, v read and p, m, v written (28 B an element) at 3.35 TB/s; beside it
-    the two passes' 40 B an element. A kernel time under the bound fails the
+    `gnfactor_bc`'s leaves (178 float32 leaves, 40.06 M elements), random p
+    and gradients. `rounds` rounds of loop, kernel, kernel, loop, each over
+    `iters` steps: kernels launched a step and the device time a step from
+    torch.profiler (`device_ms`: the kernels' mean record duration times the
+    kernels launched), and the host clock ending in a synchronize; for the
+    kernel also CUDA events around steps queued ahead of the device
+    (`queued_ms`, the record's `ms`). The bound: bytes, p, g, m, v read and
+    p, m, v written (28 B an element) at 3.35 TB/s; beside it the two
+    passes' 40 B an element. A kernel time under the bound fails the
     phase."""
     import numpy as np
     import torch
@@ -2988,49 +1941,24 @@ def phase_lamb(rounds: int = 3, iters: int = 10) -> dict:
 
     from manigaussian_tpu_torch.agents.qfunction import QFunction
     from manigaussian_tpu_torch.ops.fused_lamb import lamb_step_reference
-    from manigaussian_tpu_torch.utils.config_io import from_dict
+    from manigaussian_tpu_torch.utils.config_io import load_config
     from manigaussian_tpu_torch.utils.optimizers import Lamb
 
-    with open(os.path.join(ROOT, "benchmark", "configs",
-                           "gnfactor_bc.json")) as f:
-        cfg = from_dict(json.load(f)["config"])
+    cfg = load_config(None, GNF_FULL_OVERRIDES, variant="w_geo")
     with torch.device("meta"):
         shapes = [p.shape for p in QFunction(cfg.method).parameters()]
     lr, wd = cfg.method.lr, cfg.method.lambda_weight_l2
     gen = torch.Generator(device="cuda").manual_seed(0)
     draw = lambda scale: [scale * torch.randn(s, generator=gen, device="cuda")
                           for s in shapes]
-    p0 = draw(0.05)
+    p0, grads = draw(0.05), draw(1e-2)
     opt = Lamb([p.clone() for p in p0], lr, weight_decay=wd)
+    for p, g in zip(opt.params, grads):
+        p.grad = g
     ref = [p.clone() for p in p0]
     mu, nu = ([torch.zeros_like(p) for p in p0] for _ in range(2))
     loop = lambda: lamb_step_reference(ref, grads, mu, nu, lr, opt.b1,
                                        opt.b2, opt.eps, wd)
-    ulp = lambda x: torch.nextafter(x.abs(), torch.full_like(x, np.inf)) - x.abs()
-    moved = [torch.zeros_like(p, dtype=torch.float64) for p in p0]
-    m_bitwise = v_bitwise = True
-    excess, gap = -np.inf, 0.0
-    for _ in range(3):
-        grads = draw(1e-2)
-        for p, g in zip(opt.params, grads):
-            p.grad = g
-        before = [p.clone() for p in ref]
-        opt.step()
-        loop()
-        m_bitwise &= all(torch.equal(a, b) for a, b in zip(opt.mu, mu))
-        v_bitwise &= all(torch.equal(a, b) for a, b in zip(opt.nu, nu))
-        for acc, a, b, q in zip(moved, opt.params, ref, before):
-            acc += (b.double() - q.double()).abs()
-            d = (a.double() - b.double()).abs()
-            excess = max(excess, float((d - 1e-5 * acc
-                                        - 4 * ulp(b).double()).max()))
-            gap = max(gap, float(d.max()))
-    check = {"steps": 3, "m_bitwise": m_bitwise, "v_bitwise": v_bitwise,
-             "p_max_abs_gap": gap, "p_excess_over_tolerance": excess,
-             "tolerance": "1e-5·Σ|Δp| + 4 ulp(p)"}
-    if not (m_bitwise and v_bitwise and excess <= 0.0):
-        log("lamb", check=check, ok=False)
-        raise AssertionError(f"LAMB kernel against the loop: {check}")
 
     def profiled(fn) -> dict:
         """Over `iters` calls: kernels launched a call (the profiler's
@@ -3084,11 +2012,7 @@ def phase_lamb(rounds: int = 3, iters: int = 10) -> dict:
         r[k] for r in runs[name] if r[k] is not None)
     numel = sum(int(np.prod(s)) for s in shapes)
     bound_ms = 28 * numel / PEAK_BYTES * 1e3
-    rec = {"name": "fused_lamb", "route": "cuda",
-           "source": "manigaussian_tpu_torch/csrc/lamb.cu",
-           "replaces": None, "launches": None,
-           "max_abs_err": check["p_max_abs_gap"],
-           "leaves": len(shapes), "elements": numel,
+    rec = {"leaves": len(shapes), "elements": numel,
            "ms": med("kernel", "queued_ms"),
            "device_ms": med("kernel", "device_ms"),
            "host_ms": med("kernel", "wall_ms"),
@@ -3103,116 +2027,10 @@ def phase_lamb(rounds: int = 3, iters: int = 10) -> dict:
     under = [r for r in runs["kernel"]
              if min(r["queued_ms"], r["device_ms"] or np.inf) < bound_ms]
     ok = not under
-    log("lamb", check=check, runs=runs, ok=ok, **rec)
+    log("kernel_time", kernel="fused_lamb", runs=runs, ok=ok, **rec)
     if not ok:
         raise AssertionError(f"LAMB kernel timed under its bound of "
                              f"{bound_ms:.4f} ms: {under}")
-    return {"fused_lamb": rec}
-
-
-def embed_ab(rounds: int = 3, steps: int = 5) -> dict:
-    """Where the SD VAE's GT embedding runs in `w_geo_sem_dyna` training.
-    One agent (the train slice's config: kernel route, pallas conv, random-
-    init VAE; the gate open from step 0) and, for each design, a fresh
-    `BatchIterator` over one replay with seed 0, so every design trains on
-    the same batches. The designs, in rounds (A B C D, then D C B A, ...):
-      own_stream     — the prefetch thread computes `gt_embed` on a CUDA
-                       stream of its own (`make_embed_fn`'s design);
-      default_stream — the prefetch thread, on the default stream;
-      main_thread    — the main thread, between `next(batches)` and
-                       `update`;
-      none           — no tower: one fixed `gt_embed` (the step alone).
-    Per design, after 2 warm-up steps: each step's wall time from
-    `next(batches)` to the loss on the host, the wait in `next`, and each
-    embedding call's wall and CPU time in its thread."""
-    import numpy as np
-    import torch
-    from manigaussian_tpu_torch.agents.bc_agent import ManiGaussianBCAgent
-    from manigaussian_tpu_torch.data.language import create_language_model
-    from manigaussian_tpu_torch.data.pipeline import BatchIterator, fill_replay
-    from manigaussian_tpu_torch.data.replay import TaskUniformReplay
-    from manigaussian_tpu_torch.data.synthetic import generate_task
-    from manigaussian_tpu_torch.models import foundation as fd
-
-    cfg = train_config("w_geo_sem_dyna",
-                       (*SEM_OVERRIDES,
-                        "method.neural_renderer.next_mlp.warm_up=0"))
-    m, nr = cfg.method, cfg.method.neural_renderer
-    demos = os.path.join(WORK, "train_demos")
-    generate_task(demos, TASK, num_episodes=2, timesteps=16,
-                  h=cfg.rlbench.camera_resolution[0],
-                  w=cfg.rlbench.camera_resolution[1], nerf_views=3,
-                  nerf_hw=nr.image_height)
-    replay = TaskUniformReplay()
-    fill_replay(replay, demos, TASK, 2, cfg.rlbench.cameras,
-                cfg.rlbench.scene_bounds, m.voxel_sizes[0],
-                m.rotation_resolution, cfg.rlbench.episode_length,
-                create_language_model("stub"))
-    ex = fd.create_feature_extractor(nr.foundation_model_name,
-                                     nr.foundation_checkpoint, device="cuda")
-    agent = ManiGaussianBCAgent(cfg, device="cuda", seed=0)
-
-    def plain(rgb):
-        x = torch.as_tensor(np.asarray(rgb, np.float32)).cuda()
-        return fd.extract_gt_embed(x, ex, nr.d_embed).cpu().numpy()
-
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-
-    def own_stream(rgb):
-        with torch.cuda.stream(side):
-            return plain(rgb)
-
-    fixed = None
-    names = ("own_stream", "default_stream", "main_thread", "none")
-    res = {n: {"step_ms": [], "wait_ms": [], "embed_wall_ms": [],
-               "embed_cpu_ms": []} for n in names}
-
-    def run(name: str) -> None:
-        nonlocal fixed
-        r = res[name]
-        wall, cpu = [], []
-        fn = {"own_stream": own_stream, "default_stream": plain}.get(name)
-        it = BatchIterator(replay, cfg.replay.batch_size, seed=0,
-                           num_view_for_nerf=m.num_view_for_nerf,
-                           embed_fn=fn and timed_calls(fn, wall, cpu))
-        inline = timed_calls(plain, wall, cpu)
-        try:
-            for i in range(2 + steps):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                batch = next(it)
-                t1 = time.perf_counter()
-                if name == "main_thread":
-                    batch["gt_embed"] = inline(batch["nerf_target_rgb"])
-                elif name == "none":
-                    if fixed is None:
-                        fixed = plain(batch["nerf_target_rgb"])
-                    batch["gt_embed"] = fixed
-                loss = float(agent.update(
-                    batch, torch.Generator().manual_seed(i))["total_loss"])
-                t2 = time.perf_counter()
-                if not np.isfinite(loss):
-                    raise AssertionError(f"embed_ab {name}: loss {loss}")
-                if i >= 2:
-                    r["step_ms"].append((t2 - t0) * 1e3)
-                    r["wait_ms"].append((t1 - t0) * 1e3)
-        finally:
-            it.close()
-        r["embed_wall_ms"] += wall[2:]
-        r["embed_cpu_ms"] += cpu[2:]
-
-    for k in range(rounds):
-        for name in (names if k % 2 == 0 else names[::-1]):
-            run(name)
-    out = {n: {**r, **{f"{key}_median": statistics.median(v)
-                       for key, v in r.items() if v}}
-           for n, r in res.items()}
-    log("embed_ab", config="w_geo_sem_dyna", rounds=rounds,
-        steps_per_round=steps, port_design="own_stream", designs=out, ok=True)
-    del agent, ex
-    torch.cuda.empty_cache()
-    return out
 
 
 # ---------------------------------------------------------------- slice 11
@@ -3220,33 +2038,6 @@ def embed_ab(rounds: int = 3, steps: int = 5) -> dict:
 # the native replay store; the rasterizer's two-level duplication.
 EVAL_ARGS = ("--eval-type", "missing", "--episodes", "2",
              "--episode-length", "5")
-
-
-class timed_methods:
-    """Within the block, each (class, name) method appends its calls' wall
-    ms to `self.ms[name]`."""
-
-    def __init__(self, *methods):
-        self.methods, self.ms, self._orig = methods, {}, []
-
-    def __enter__(self):
-        for cls, name in self.methods:
-            orig = getattr(cls, name)
-            times = self.ms.setdefault(f"{cls.__name__}.{name}", [])
-
-            def timed(*args, _orig=orig, _times=times, **kwargs):
-                t0 = time.perf_counter()
-                out = _orig(*args, **kwargs)
-                _times.append((time.perf_counter() - t0) * 1e3)
-                return out
-
-            self._orig.append((cls, name, orig))
-            setattr(cls, name, timed)
-        return self
-
-    def __exit__(self, *exc):
-        for cls, name, orig in self._orig:
-            setattr(cls, name, orig)
 
 
 def counted_eval_worker(job):
@@ -3265,18 +2056,14 @@ def counted_eval_worker(job):
         return orig(self, observation)
 
     ManiGaussianBCAgent.act = counted
-    t0 = time.time()
     row = fn(payload)
     on_card = torch.cuda.is_initialized()
-    if on_card:
-        torch.cuda.synchronize()
     out = os.path.join(WORK, "eval_workers")
     os.makedirs(out, exist_ok=True)
     with open(os.path.join(out, f"{payload[2]}.json"), "w") as f:
         json.dump({"pid": os.getpid(), "device": payload[6],
                    "card": torch.cuda.get_device_name(0) if on_card else None,
-                   "act_calls": calls[0], "launches": kernel_launches(),
-                   "seconds": time.time() - t0}, f)
+                   "act_calls": calls[0], "launches": kernel_launches()}, f)
     return row
 
 
@@ -3315,13 +2102,12 @@ def phase_eval_slice(counters: dict, sl: dict) -> dict:
     times an act); with `--workers 2` (two spawned processes on the card,
     each counting its own acts and launches), whose rows must equal the
     serial ones; with `--record-every-n 1`, one GIF an episode holding the
-    episode's steps + 1 frames. Each run's wall time."""
+    episode's steps + 1 frames."""
     import multiprocessing
     import torch
     from PIL import Image
     from manigaussian_tpu_torch import eval as eval_cli
     from manigaussian_tpu_torch.agents.registry import create_agent
-    from manigaussian_tpu_torch.envs.mock_env import MockEnvClient
     from manigaussian_tpu_torch.runners import eval_runner
     from manigaussian_tpu_torch.utils.checkpoint import save_checkpoint
     from manigaussian_tpu_torch.utils.video import EpisodeRecorder
@@ -3329,11 +2115,8 @@ def phase_eval_slice(counters: dict, sl: dict) -> dict:
     cfg, demos, m = sl["cfg"], sl["demos"], sl["cfg"].method
     base = eval_copy(sl["logdir"], "eval_ckpts")
     save_checkpoint(base, 1, create_agent(cfg, device="cuda", seed=1).qfn)
-    t_phase = time.time()
-    with timed_methods((MockEnvClient, "step")) as mock:
-        calls, launches, rows, serial_s, act_ms = drive_eval(
-            counters, eval_copy(base, "eval_serial"), demos,
-            ("--env", "mock", *EVAL_ARGS))
+    calls, launches, rows = drive_eval(counters, eval_copy(base, "eval_serial"),
+                                       demos, ("--env", "mock", *EVAL_ARGS))
     expect = {k: 0 for k in counters} | {
         "flash_self_attention_fwd": m.transformer_depth * calls}
 
@@ -3342,11 +2125,9 @@ def phase_eval_slice(counters: dict, sl: dict) -> dict:
     pool = ctx.Pool
     ctx.Pool = lambda n: _CountedPool(pool(n))
     try:
-        t0 = time.time()
         w_rows = eval_cli.main(["--logdir", eval_copy(base, "eval_workers_log"),
                                 "--demo-root", demos, "--env", "mock",
                                 *EVAL_ARGS, "--workers", "2"])
-        workers_s = time.time() - t0
     finally:
         del ctx.Pool
     workers = {}
@@ -3378,11 +2159,9 @@ def phase_eval_slice(counters: dict, sl: dict) -> dict:
     eval_runner.rollout_episode = counted_rollout
     try:
         rec_log = eval_copy(base, "eval_record")
-        t0 = time.time()
         r_rows = eval_cli.main(["--logdir", rec_log, "--demo-root", demos,
                                 "--env", "mock", *EVAL_ARGS,
                                 "--record-every-n", "1"])
-        record_s = time.time() - t0
     finally:
         EpisodeRecorder.save = orig_save
         eval_runner.rollout_episode = orig_rollout
@@ -3397,19 +2176,14 @@ def phase_eval_slice(counters: dict, sl: dict) -> dict:
           and gifs == want and [n for _, n in frames] == [s + 1 for s in lengths]
           and all(0 < g <= s + 1 for g, s in zip(gif_frames, lengths)))
     log("eval_slice", config="w_geo", checkpoints=[0, 1], rows=rows,
-        act_calls=calls, launches=launches, expected=expect,
-        act_ms_median=statistics.median(act_ms),
-        mock_step_ms_median=statistics.median(mock.ms["MockEnvClient.step"]),
-        serial_s=serial_s, workers_s=workers_s, workers=workers,
-        worker_rows_equal=w_rows == rows, record_s=record_s, gifs=gifs,
+        act_calls=calls, launches=launches, expected=expect, workers=workers,
+        worker_rows_equal=w_rows == rows, gifs=gifs,
         recorder_frames=frames, episode_steps=lengths,
-        gif_frames_after_pillow=gif_frames,
-        seconds=time.time() - t_phase, ok=ok)
+        gif_frames_after_pillow=gif_frames, ok=ok)
     if not ok:
         raise AssertionError("the eval slice (workers, GIFs) failed its checks")
     return {"base": base, "rows": rows, "launches": launches,
-            "worker_launches": worker_launches,
-            "mock_step_ms": mock.ms["MockEnvClient.step"]}
+            "worker_launches": worker_launches}
 
 
 def read_line(proc, timeout: float) -> str:
@@ -3428,15 +2202,12 @@ def phase_eval_rpc(counters: dict, sl: dict, ev: dict) -> dict:
     address read from its first line) recording the session, the CLI with
     `--env rpc://127.0.0.1:<port>`; then the recorded session replayed with
     `--env transcript://<path>`, which must end exhausted. Both give the
-    serial mock run's rows, with the same launch counts; the time an env
-    step takes through the bridge beside the in-process mock's."""
-    from manigaussian_tpu_torch.envs.rpc import RPCEnvClient
+    serial mock run's rows, with the same launch counts."""
     from manigaussian_tpu_torch.envs.transcript import TranscriptReplayEnv
     from manigaussian_tpu_torch.runners import eval_runner
 
     m = sl["cfg"].method
     session = os.path.join(WORK, "eval_rpc_session.jsonl")
-    t_phase = time.time()
     proc = subprocess.Popen(
         [sys.executable, "-m", "manigaussian_tpu_torch.sim_host_server",
          "--host", "127.0.0.1", "--port", "0", "--backend", "mock",
@@ -3446,11 +2217,9 @@ def phase_eval_rpc(counters: dict, sl: dict, ev: dict) -> dict:
     try:
         line = read_line(proc, 120)
         address = line.rsplit(" ", 1)[-1]
-        with timed_methods((RPCEnvClient, "step"),
-                           (RPCEnvClient, "reset_to_demo")) as rpc:
-            calls, launches, rows, rpc_s, _ = drive_eval(
-                counters, eval_copy(ev["base"], "eval_rpc"), sl["demos"],
-                ("--env", f"rpc://{address}", *EVAL_ARGS))
+        calls, launches, rows = drive_eval(
+            counters, eval_copy(ev["base"], "eval_rpc"), sl["demos"],
+            ("--env", f"rpc://{address}", *EVAL_ARGS))
     finally:
         proc.terminate()
         proc.wait(timeout=30)
@@ -3462,10 +2231,9 @@ def phase_eval_rpc(counters: dict, sl: dict, ev: dict) -> dict:
 
     eval_runner.make_env = kept_env
     try:
-        with timed_methods((TranscriptReplayEnv, "step")) as rep:
-            t_calls, t_launches, t_rows, transcript_s, _ = drive_eval(
-                counters, eval_copy(ev["base"], "eval_transcript"),
-                sl["demos"], ("--env", f"transcript://{session}", *EVAL_ARGS))
+        t_calls, t_launches, t_rows = drive_eval(
+            counters, eval_copy(ev["base"], "eval_transcript"),
+            sl["demos"], ("--env", f"transcript://{session}", *EVAL_ARGS))
     finally:
         eval_runner.make_env = orig_make
     replay = envs[0]
@@ -3473,8 +2241,6 @@ def phase_eval_rpc(counters: dict, sl: dict, ev: dict) -> dict:
                  and replay._i == len(replay.records))
     expect = lambda n: {k: 0 for k in counters} | {
         "flash_self_attention_fwd": m.transformer_depth * n}
-    rpc_step = statistics.median(rpc.ms["RPCEnvClient.step"])
-    mock_step = statistics.median(ev["mock_step_ms"])
     ok = (line.startswith("[sim-host] serving mock env on 127.0.0.1:")
           and rows == ev["rows"] and t_rows == ev["rows"] and exhausted
           and launches == expect(calls) and t_launches == expect(t_calls)
@@ -3483,15 +2249,7 @@ def phase_eval_rpc(counters: dict, sl: dict, ev: dict) -> dict:
         transcript_rows_equal_mock=t_rows == ev["rows"],
         transcript_exhausted=exhausted,
         transcript_records=len(replay.records), act_calls=calls,
-        launches=launches, transcript_launches=t_launches,
-        rpc_step_ms=rpc.ms["RPCEnvClient.step"],
-        rpc_reset_ms=rpc.ms["RPCEnvClient.reset_to_demo"],
-        rpc_step_ms_median=rpc_step, mock_step_ms_median=mock_step,
-        rpc_added_ms_a_step=rpc_step - mock_step,
-        transcript_step_ms_median=statistics.median(
-            rep.ms["TranscriptReplayEnv.step"]),
-        rpc_s=rpc_s, transcript_s=transcript_s,
-        seconds=time.time() - t_phase, ok=ok)
+        launches=launches, transcript_launches=t_launches, ok=ok)
     if not ok:
         raise AssertionError("the RPC / transcript eval failed its checks")
     return {"launches": launches, "transcript_launches": t_launches}
@@ -3542,11 +2300,7 @@ def adam_plain_check(opt) -> dict:
     for q, x in zip(host.params, g):
         q.grad = x.float()
     host.step()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     opt.step()
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) * 1e3
     errs, worst = {}, {}
     for name, card, cpu, plain in (
             ("params", opt.params, host.params, p1),
@@ -3572,13 +2326,13 @@ def adam_plain_check(opt) -> dict:
                           zip(opt.params + opt.mu + opt.nu,
                               host.params + host.mu + host.nu))
     return {"leaves": len(p0), "values": sum(p.numel() for p in p0),
-            "lr": lr, "count": t, "step_ms": step_ms,
+            "lr": lr, "count": t,
             "error_over_tol": errs, "worst": worst,
             "card_equals_cpu_fp32_bitwise": card_equals_cpu,
             "ok": max(errs[k] for k in ("params", "mu", "nu")) <= 1.0}
 
 
-def phase_adam_slice(counters: dict, demos: str, lamb_step_ms: float) -> dict:
+def phase_adam_slice(counters: dict, demos: str) -> dict:
     """`method.optimizer=adam` through the train entry point at full `w_geo`
     width: 3 steps and a resume (`phase_train_slice`: finite losses, the
     launches of every step); the optimizer state the resume restored equal
@@ -3605,7 +2359,6 @@ def phase_adam_slice(counters: dict, demos: str, lamb_step_ms: float) -> dict:
 
     ManiGaussianBCAgent.update = kept_update
     runner.restore_checkpoint = kept_restore
-    t0 = time.time()
     try:
         tr = phase_train_slice(counters, "w_geo", ("method.optimizer=adam",),
                                steps=3, demos=demos, label="adam_slice")
@@ -3625,9 +2378,7 @@ def phase_adam_slice(counters: dict, demos: str, lamb_step_ms: float) -> dict:
     ok = same and type(opt) is AdamW and check["ok"]
     log("adam_slice_check", restored_step=step,
         restored_equals_saved=same, plain_check=check,
-        tol=f"{ADAM_TOL} of the sum of the terms' magnitudes",
-        adam_step_ms_median=tr["step_ms"], lamb_step_ms_median=lamb_step_ms,
-        seconds=time.time() - t0, ok=ok)
+        tol=f"{ADAM_TOL} of the sum of the terms' magnitudes", ok=ok)
     if not ok:
         raise AssertionError("the Adam slice failed its checks")
     return tr
@@ -3639,8 +2390,7 @@ def phase_disk_slice(counters: dict, demos: str) -> dict:
     reopening the record log); the replay must use the native store (no
     fallback to pickles). Then a run with the pickle layout (the store's
     default storage switched for it) from the same demos and seed: its
-    first 3 batches equal the native run's bit for bit. The wait in
-    `next(batches)` and the replay's sampling time of both layouts."""
+    first 3 batches equal the native run's bit for bit."""
     import numpy as np
     from manigaussian_tpu_torch import train as train_cli
     from manigaussian_tpu_torch.data.pipeline import BatchIterator
@@ -3653,18 +2403,16 @@ def phase_disk_slice(counters: dict, demos: str) -> dict:
         def __init__(self, save_dir=None, shard=(0, 1)):
             super().__init__(save_dir, shard, storage="pickle")
 
-    seen = {}                 # layout → each run's storage, batches, waits
+    seen = {}                 # layout → each run's storage and batches
     runs, orig_init, orig_next = [], BatchIterator.__init__, BatchIterator.__next__
 
     def kept_init(self, replay, *args, **kwargs):
         orig_init(self, replay, *args, **kwargs)
-        runs.append({"storage": replay.storage, "batches": [], "wait_ms": []})
+        runs.append({"storage": replay.storage, "batches": []})
         self._smoke_run = runs[-1]
 
     def kept_next(self):
-        t0 = time.perf_counter()
         batch = orig_next(self)
-        self._smoke_run["wait_ms"].append((time.perf_counter() - t0) * 1e3)
         if len(self._smoke_run["batches"]) < 3:
             self._smoke_run["batches"].append(
                 {k: np.array(v) for k, v in batch.items()})
@@ -3675,7 +2423,6 @@ def phase_disk_slice(counters: dict, demos: str) -> dict:
     for d in (native_dir, pickle_dir):
         shutil.rmtree(d, ignore_errors=True)
     BatchIterator.__init__, BatchIterator.__next__ = kept_init, kept_next
-    t0 = time.time()
     try:
         tr = phase_train_slice(
             counters, "w_geo", ("replay.use_disk=true",
@@ -3705,17 +2452,6 @@ def phase_disk_slice(counters: dict, demos: str) -> dict:
                      and all(a[k].dtype == b[k].dtype
                              and np.array_equal(a[k], b[k]) for k in a)
                      for a, b in zip(first["batches"], other["batches"])))
-    sample_ms = {}
-    for layout, path in (("native", native_dir), ("pickle", pickle_dir)):
-        replay = TaskUniformReplay(save_dir=path, storage=layout)
-        replay.reload_from_disk()
-        rng = np.random.default_rng(0)
-        wall = []
-        for _ in range(20):
-            t1 = time.perf_counter()
-            replay.sample(1, rng)
-            wall.append((time.perf_counter() - t1) * 1e3)
-        sample_ms[layout] = statistics.median(wall)
     ok = (all(r["storage"] == "native" for r in seen["native"])
           and len(seen["native"]) == 2
           and native_files == ["records.bin", "records.idx"]
@@ -3725,20 +2461,15 @@ def phase_disk_slice(counters: dict, demos: str) -> dict:
         record_files=native_files,
         record_bytes=os.path.getsize(os.path.join(task_dir, "records.bin")),
         pickle_files=len(pickles), first_batches_equal_pickle_layout=equal,
-        next_batch_wait_ms={"native": first["wait_ms"],
-                            "native_resume": seen["native"][1]["wait_ms"],
-                            "pickle": other["wait_ms"]},
-        next_batch_wait_ms_median_after_1={
-            k: statistics.median(r["wait_ms"][1:]) for k, r in
-            (("native", first), ("pickle", other))},
-        sample_one_ms_median=sample_ms, seconds=time.time() - t0, ok=ok)
+        ok=ok)
     if not ok:
         raise AssertionError("the native replay store slice failed its checks")
     return tr
 
 
 def random_scene(n: int = 16384, seed: int = 0) -> dict:
-    """`random_frame`'s Gaussians (numpy draws), as float32 arrays."""
+    """n random Gaussians (the JAX tests' random_scene distribution, drawn
+    with numpy from `seed`) in front of the origin, as float32 arrays."""
     import numpy as np
     rng = np.random.default_rng(seed)
     f = np.float32
@@ -3761,13 +2492,13 @@ def phase_two_level(counters: dict) -> dict:
     same splats in the same key order; the Gaussians past r_cap tiles are
     cut alike); with a table of a quarter of them, `overflow_gaussians`
     (more than the single level's) and the image equal the plain route's
-    on the CPU (the image under the golden rule). The sort lengths and the
-    bin/sort time of both."""
+    on the CPU (the image under the golden rule). The sort lengths of
+    both."""
     import torch
     from manigaussian_tpu_torch.ops import gaussian_math as gm
     from manigaussian_tpu_torch.ops.camera import novel_camera_calib
     from manigaussian_tpu_torch.ops.rasterizer import (RasterizeConfig,
-                                                       rasterize, tile_lists)
+                                                       rasterize)
 
     scene, hw = random_scene(), 128
     keys = ("means3d", "opacities", "scales", "rotations", "shs",
@@ -3791,7 +2522,6 @@ def phase_two_level(counters: dict) -> dict:
              + out.final_t.sum()).backward()
         return out, ex, [p[k].grad for k in keys] if grads else []
 
-    t_phase = time.time()
     single = RasterizeConfig(width=hw, height=hw)
     cam = camera("cuda")
     t = lambda k: torch.tensor(scene[k], device="cuda")[None]
@@ -3816,8 +2546,6 @@ def phase_two_level(counters: dict) -> dict:
     img = mostly_close(k_out.color.detach().cpu(), c_out.color.detach(),
                        1e-4, 1e-3)
     overflow = (int(k_ex.overflow_gaussians), int(c_ex.overflow_gaussians))
-    times = {name: cuda_ms(lambda c=c: tile_lists(pre, c), iters=20)
-             for name, c in (("single", single), ("two_level", full))}
     lengths = {"single": n * r_cap, "two_level": n * s_cap + n_big * r_cap,
                "two_level_quarter_table": n * s_cap + (n_big // 4) * r_cap}
     ok = (bitwise and int(t_ex.overflow_gaussians)
@@ -3834,9 +2562,8 @@ def phase_two_level(counters: dict) -> dict:
         overflow_splats=[int(s_ex.overflow_splats),
                          int(t_ex.overflow_splats)],
         small_table_image_frac_outside_max_diff=img[1:],
-        sort_lengths=lengths, bin_sort_ms=times,
-        rule="image atol 1e-4 rtol 1e-3, ≤0.5 % outside",
-        seconds=time.time() - t_phase, ok=ok)
+        sort_lengths=lengths, rule="image atol 1e-4 rtol 1e-3, ≤0.5 % outside",
+        ok=ok)
     if not ok:
         raise AssertionError("the two-level duplication failed its checks")
     return {"launches": launches}
@@ -3854,7 +2581,6 @@ def phase_dino_swiglu() -> dict:
     from manigaussian_tpu_torch.models.dinov2 import DinoV2ViT, save_hf_dir
     from manigaussian_tpu_torch.models.foundation import \
         create_feature_extractor
-    t_phase = time.time()
     gen = torch.Generator().manual_seed(1)
     model = DinoV2ViT(patch_size=14, width=64, layers=2, heads=2, pos_grid=5,
                       swiglu=True)
@@ -3879,7 +2605,7 @@ def phase_dino_swiglu() -> dict:
           and err <= DINO_TOL * max(1.0, scale))
     log("dino_swiglu", hidden=card.model.blocks[0].mlp.w3.in_features,
         shape=list(fc.shape), max_abs_err_card_vs_cpu=err, scale=scale,
-        tol=DINO_TOL, seconds=time.time() - t_phase, ok=ok)
+        tol=DINO_TOL, ok=ok)
     if not ok:
         raise AssertionError(f"dino_swiglu: card against CPU {err} (scale "
                              f"{scale}), shape {tuple(fc.shape)}")
@@ -3918,7 +2644,6 @@ def phase_towers_msgpack() -> dict:
     from manigaussian_tpu_torch.models.foundation import \
         SDVaeFeatureExtractor
     from manigaussian_tpu_torch.tools import convert_weights as cw
-    t_phase = time.time()
     d = os.path.join(WORK, "towers")
     os.makedirs(d, exist_ok=True)
     gen = torch.Generator().manual_seed(3)
@@ -3972,7 +2697,7 @@ def phase_towers_msgpack() -> dict:
             "finite": all(bool(torch.isfinite(t).all()) for t in converted)}
     ok = all(r["bitwise"] and r["rewrite_equal"] and r["finite"]
              for r in res.values())
-    log("towers_msgpack", towers=res, seconds=time.time() - t_phase, ok=ok)
+    log("towers_msgpack", towers=res, ok=ok)
     if not ok:
         raise AssertionError(f"towers_msgpack: {res}")
     return res
@@ -4072,7 +2797,6 @@ def phase_imported_train(counters: dict, tr: dict) -> dict:
     imported demos (`phase_train_slice`: the launches of every step, the
     recon render's at step 0). The first step's losses beside train_slice's
     on the same seed (within IMPORT_TOL), the depth round trip's error."""
-    t_phase = time.time()
     ref = os.path.join(WORK, "rlbench_reference")
     native = os.path.join(WORK, "rlbench_imported")
     depth_err = export_reference_demos(tr["demos"], ref, TASK)
@@ -4094,8 +2818,7 @@ def phase_imported_train(counters: dict, tr: dict) -> dict:
                                               "blend_fwd", "blend_bwd")))
     log("imported_train", depth_png_max_err_m=depth_err,
         first_step_imported=ours, first_step_train_slice=theirs,
-        rel_diff=diffs, tol=IMPORT_TOL, launches=it["launches"],
-        step_ms_median=it["step_ms"], seconds=time.time() - t_phase, ok=ok)
+        rel_diff=diffs, tol=IMPORT_TOL, launches=it["launches"], ok=ok)
     if not ok:
         raise AssertionError(f"imported_train: {diffs}, depth {depth_err}")
     return it
@@ -4115,10 +2838,10 @@ def phase_scaling(counters: dict) -> dict:
     """The scaling twin (`python -m manigaussian_tpu_torch.bench_scaling`)
     on the card. Two runs of two `--dist` ranks that share the card over
     gloo (`--dist-backend gloo`): rank 0 in this process (its launches
-    counted), rank 1 a subprocess. The timed run (`--weak --train-step`,
-    65,536 Gaussians at 128², SCALING_ITERS iterations): strong and weak
-    render rows and the tiny config's DP rows at D = 1 (rank 0 alone) and
-    D = 2 (`platform_limited`: two ranks on one card, no scaling figure);
+    counted), rank 1 a subprocess. The `--weak --train-step` run (65,536
+    Gaussians at 128², SCALING_ITERS iterations): strong and weak render
+    rows and the tiny config's DP rows at D = 1 (rank 0 alone) and D = 2
+    (`platform_limited`: two ranks on one card), each written;
     the `--comm-model --train-step` run: the render's and the `w_geo` DP
     step's collective bytes, each t_comp the D = 1 time of this run. The
     render's bytes equal the reckoning from its shapes; the DP step's
@@ -4126,11 +2849,9 @@ def phase_scaling(counters: dict) -> dict:
     and holds at least the 39,811,941 float32 gradients. Launches by path:
     each D = 1 render and each D = 2 render on rank 0 one blend forward and
     one backward; the D = 1 tiny DP step `expected_launches`."""
-    import torch
     from manigaussian_tpu_torch import bench_scaling as bs
     from manigaussian_tpu_torch.parallel.distributed import (dist_spec,
                                                              free_port)
-    t_phase = time.time()
     out = os.path.join(WORK, "scaling.jsonl")
     paths = {}
     orig_render, orig_dp = bs.render_step, bs._dp_step
@@ -4151,7 +2872,7 @@ def phase_scaling(counters: dict) -> dict:
                        orig_render(run, scene, size, cfg, mesh))
 
     def counted_dp(run, cfg, d, img):
-        # the timed rows' tiny config (32²) or the comm model's w_geo
+        # the DP rows' tiny config (32²) or the comm model's w_geo
         agent, fn = orig_dp(run, cfg, d, img)
         kind = "train" if img == 32 else "comm_train_w_geo"
         return agent, counted(f"scaling_{kind}_d{d}"
@@ -4159,7 +2880,7 @@ def phase_scaling(counters: dict) -> dict:
 
     common = ["--n", str(SCALING_N), "--size", str(SCALING_SIZE), "--iters",
               str(SCALING_ITERS), "--dist-backend", "gloo", "--out", out]
-    runs = {"timed": ["--weak", "--train-step"],
+    runs = {"rows": ["--weak", "--train-step"],
             "comm_model": ["--comm-model", "--train-step"]}
     bs.render_step, bs._dp_step = counted_render, counted_dp
     try:
@@ -4228,9 +2949,14 @@ def phase_scaling(counters: dict) -> dict:
           == dp_comm["reckoned_all_reduce_bytes"]
           and dp_comm["param_bytes"] >= 4 * W_GEO_PARAMS
           and got == full and extra_ok)
-    log("scaling", rows=rows, launches_by_path=paths, expected=full,
-        expected_w_geo_d1=w_geo_steps,
-        render_bytes_reckoned=reckoned, seconds=time.time() - t_phase, ok=ok)
+    log("scaling", rows=[[r["metric"], r["devices"], r.get("platform_limited")]
+                         for r in rows],
+        render_collective_bytes=render_comm["collective_bytes"],
+        render_bytes_reckoned=reckoned,
+        dp_collective_bytes=dp_comm["collective_bytes"],
+        dp_all_reduce_reckoned=dp_comm["reckoned_all_reduce_bytes"],
+        launches_by_path=paths, expected=full,
+        expected_w_geo_d1=w_geo_steps, ok=ok)
     if not ok:
         raise AssertionError(f"scaling: launches {got} against {full}, "
                              f"rows {rows}")
@@ -4248,7 +2974,7 @@ ATT3D_TOL = 1e-5
 SSIM_REL = 1e-5
 
 
-def phase_extras() -> dict:
+def phase_extras() -> None:
     """The library modules no training path uses, the card against the CPU:
     `knn_mean_sq_dist` on the training frame's 16,384 points (true fp32):
     on the points rounded to a 2^-6 grid, where the arithmetic is exact,
@@ -4267,7 +2993,6 @@ def phase_extras() -> dict:
     from manigaussian_tpu_torch.ops.knn import knn_mean_sq_dist
     from manigaussian_tpu_torch.ops.losses import ssim
     from manigaussian_tpu_torch.utils.profiling import capture_trace
-    t_phase = time.time()
     raw = torch.from_numpy(random_scene(EXTRAS_KNN_N)["means3d"])
     grid = torch.round(raw * 64) / 64     # exact in float32 in any order
     knn = {}
@@ -4277,8 +3002,6 @@ def phase_extras() -> dict:
                                            / cpu.abs()).max()),
                      "max_abs_err": float((card - cpu).abs().max()),
                      "bound": KNN_CANCEL * float((pts * pts).sum(-1).max())}
-    knn_ms = cuda_ms(lambda: knn_mean_sq_dist(raw.cuda()), iters=5,
-                     warmup=1)
     knn_ok = (knn["grid"]["max_rel_err"] <= KNN_REL
               and knn["raw"]["max_abs_err"] <= knn["raw"]["bound"])
 
@@ -4316,15 +3039,13 @@ def phase_extras() -> dict:
     log("extras", knn_points=EXTRAS_KNN_N, knn=knn,
         knn_tol={"grid": f"{KNN_REL} relative",
                  "raw": "2^-18 · max|p|² absolute"},
-        knn_card_ms=knn_ms, attention3d_max_abs_err=att_err,
+        attention3d_max_abs_err=att_err,
         attention3d_scale=att_scale, attention3d_tol=ATT3D_TOL,
         ssim=[s_card, s_cpu], ssim_rel_err=ssim_err, ssim_tol=SSIM_REL,
-        trace_file=files, trace_kernel_events=kernels,
-        seconds=time.time() - t_phase, ok=ok)
+        trace_file=files, trace_kernel_events=kernels, ok=ok)
     if not ok:
         raise AssertionError(f"extras: knn {knn}, attention3d {att_err}, "
                              f"ssim {ssim_err}, trace {files} {kernels}")
-    return {}
 
 
 # The user scripts' phases (manigaussian_tpu_torch/scripts/): the campaign
@@ -4339,9 +3060,8 @@ JAX_CAMPAIGN_SUMMARY = os.path.join(ROOT, "results", "flagship_campaign",
 
 def run_counted(counters: dict, fn, *args, **kwargs):
     """fn(*args, **kwargs) with the counts set to 0 just before and read just
-    after, and the agent's act calls counted: (result, launches, act calls,
-    seconds)."""
-    import torch
+    after, and the agent's act calls counted: (result, launches, act
+    calls)."""
     from manigaussian_tpu_torch.agents.bc_agent import ManiGaussianBCAgent
     calls, orig = [0], ManiGaussianBCAgent.act
 
@@ -4353,14 +3073,11 @@ def run_counted(counters: dict, fn, *args, **kwargs):
     try:
         for c in counters.values():
             c.launches = 0
-        t0 = time.time()
         out = fn(*args, **kwargs)
-        torch.cuda.synchronize()
-        seconds = time.time() - t0
         launches = {k: c.launches for k, c in counters.items()}
     finally:
         ManiGaussianBCAgent.act = orig
-    return out, launches, calls[0], seconds
+    return out, launches, calls[0]
 
 
 def training_launches(m, iters: int, act_calls: int = 0) -> dict:
@@ -4388,8 +3105,7 @@ def phase_campaign(counters: dict) -> dict:
     steps and the recon renders: the flash pair and the blend pair). Checks:
     no non-finite cell, the JAX artifact's summary keys (feed's too), the
     last checkpoint restored into a new agent with finite parameters and
-    LAMB's state, the feed's ms a batch below the step's median, the first
-    and last recon panels written."""
+    LAMB's state, the first and last recon panels written."""
     import torch
     from manigaussian_tpu_torch.agents.registry import create_agent
     from manigaussian_tpu_torch.scripts import flagship_campaign as fc
@@ -4400,7 +3116,7 @@ def phase_campaign(counters: dict) -> dict:
     argv = ["--variant", "w_geo", "--iters", str(CAMPAIGN_ITERS), "--demos",
             str(CAMPAIGN_DEMOS), "--work", work, "--out", out,
             *CAMPAIGN_OVERRIDES]
-    summary, launches, acts, seconds = run_counted(counters, fc.main, argv)
+    summary, launches, acts = run_counted(counters, fc.main, argv)
     cfg = fc.build_cfg("w_geo", CAMPAIGN_ITERS, work=work,
                        overrides=CAMPAIGN_OVERRIDES, demos=CAMPAIGN_DEMOS)
     m = cfg.method
@@ -4414,7 +3130,6 @@ def phase_campaign(counters: dict) -> dict:
     params_finite = all(bool(torch.isfinite(p).all())
                         for p in agent.qfn.parameters())
     del agent
-    step_ms = 1e3 / summary["steps_per_s_median"]
     art = os.path.join(out, "w_geo")
     panels = sorted(f for f in os.listdir(art) if f.endswith(".png"))
     ok = (summary["nonfinite_cells"] == 0
@@ -4424,7 +3139,6 @@ def phase_campaign(counters: dict) -> dict:
           and summary["iterations"] == (CAMPAIGN_ITERS - 1) // 10 * 10 + 1
           and summary["logged_rows"] == len(range(0, CAMPAIGN_ITERS, 10))
           and step == CAMPAIGN_ITERS - 1 and params_finite
-          and summary["feed"]["ms_per_batch"] < step_ms
           and panels == ["0.png", "30.png"]
           and launches == expect and acts == 0
           and sorted(os.listdir(art)) == sorted(
@@ -4437,13 +3151,13 @@ def phase_campaign(counters: dict) -> dict:
                  "iterations": [CAMPAIGN_ITERS, 10010],
                  "log_freq": [10, 50], "save_freq": [30, 2500],
                  "render_freq": [30, 1000]},
-        summary=summary, step_ms_median=step_ms,
-        feed_below_step=summary["feed"]["ms_per_batch"] < step_ms,
+        summary_keys=sorted(summary), nonfinite_cells=summary["nonfinite_cells"],
+        iterations=summary["iterations"], logged_rows=summary["logged_rows"],
         launches=launches, expected=expect, restored_step=step,
-        params_finite=params_finite, panels=panels, seconds=seconds, ok=ok)
+        params_finite=params_finite, panels=panels, ok=ok)
     if not ok:
         raise AssertionError("the flagship campaign failed its checks")
-    return {"launches": launches, "summary": summary}
+    return {"launches": launches}
 
 
 def phase_artifact(counters: dict) -> dict:
@@ -4473,7 +3187,7 @@ def phase_artifact(counters: dict) -> dict:
     pool = ctx.Pool
     ctx.Pool = lambda n: _CountedPool(pool(n))
     try:
-        summary, launches, acts, seconds = run_counted(
+        summary, launches, acts = run_counted(
             counters, ra.run, out, seeds=1, tasks=tasks, iterations=40,
             save_freq=20, episodes=1, workers=2,
             work_dir=os.path.join(WORK, "artifact_work"), device="cuda")
@@ -4514,7 +3228,7 @@ def phase_artifact(counters: dict) -> dict:
         dtype=m.policy_dtype, heads=[m.latent_heads, m.latent_dim_head],
         latents=[m.num_latents, m.latent_dim], header=header,
         summary=summary, launches=launches, expected=expect,
-        eval_workers=workers, format_ok=format_ok, seconds=seconds, ok=ok)
+        eval_workers=workers, format_ok=format_ok, ok=ok)
     if not ok:
         raise AssertionError("the results artifact failed its checks")
     return {"launches": launches,
@@ -4550,7 +3264,6 @@ def phase_tools(counters: dict) -> dict:
     from manigaussian_tpu_torch.scripts import gen_demonstrations as gd
     from manigaussian_tpu_torch.scripts import make_goldens as mg
 
-    t0 = time.time()
     demos = os.path.join(WORK, "tools_demos")
     gd.main(["--tasks", "open_drawer", "--save_path", demos,
              "--episodes_per_task", "1", "--image_size", "128",
@@ -4560,9 +3273,8 @@ def phase_tools(counters: dict) -> dict:
     gen_ok = (len(eps) == 1 and len(ep) == 12
               and load_image(ep.rgb_paths["front"][0]).shape == (128, 128, 3)
               and len(ep.nerf_rgb_paths[0]) == 3)
-    gen_s = time.time() - t0
 
-    report, launches, acts, diag_s = run_counted(
+    report, launches, acts = run_counted(
         counters, dl.main, ["--iterations", "40", "--save-freq", "20",
                             "--episodes", "1",
                             "--work", os.path.join(WORK, "diag")])
@@ -4573,8 +3285,7 @@ def phase_tools(counters: dict) -> dict:
                and all(r["n"] > 0 for r in report))
 
     out = os.path.join(WORK, "goldens")
-    golden, g_launches, _, golden_s = run_counted(counters, mg.main,
-                                                  ["--out", out])
+    golden, g_launches, _ = run_counted(counters, mg.main, ["--out", out])
     rule = {"frames": (1e-4, 1e-3, 0.005), "grads": (2e-4, 1e-3, 0.02)}
     frames = ("golden_color", "golden_lang", "golden_final_t")
 
@@ -4630,10 +3341,10 @@ def phase_tools(counters: dict) -> dict:
         g_res[name] = res
     ok = gen_ok and diag_ok and g_ok
     log("tools", gen_demonstrations={"episodes": len(eps), "steps": len(ep),
-                                     "seconds": gen_s, "ok": gen_ok},
+                                     "ok": gen_ok},
         diagnose_learning={"report": report, "act_calls": acts,
                            "launches": launches, "expected": expect,
-                           "seconds": diag_s, "ok": diag_ok},
+                           "ok": diag_ok},
         make_goldens={"oracle": "ops/rasterizer_ref.py",
                       "launches": g_launches, "results": g_res,
                       "rule": "against tests/goldens, every element: loss "
@@ -4642,20 +3353,45 @@ def phase_tools(counters: dict) -> dict:
                               "kernel route against the regenerated: frames "
                               "atol 1e-4 rtol 1e-3 <=0.5 % outside, grads "
                               "atol 2e-4 rtol 1e-3 <=2 % outside",
-                      "seconds": golden_s, "ok": g_ok},
-        seconds=time.time() - t0, ok=ok)
+                      "ok": g_ok},
+        ok=ok)
     if not ok:
         raise AssertionError("the user tools failed their checks")
     return {"launches": launches}
 
 
+# the port's kernels: their source and the TPU kernel each replaces
+KERNELS = {
+    "flash_self_attention_fwd": ("flash_attention.cu",
+                                 "manigaussian_tpu/ops/flash_attention.py:138"),
+    "flash_self_attention_bwd": ("flash_attention.cu",
+                                 "manigaussian_tpu/ops/flash_attention.py:166"),
+    "blend_fwd": ("blend.cu", "manigaussian_tpu/ops/pallas_blend.py:317"),
+    "blend_bwd": ("blend.cu", "manigaussian_tpu/ops/pallas_blend.py:339"),
+    "conv3d_fwd": ("conv3d.cu", "manigaussian_tpu/ops/pallas_conv.py:126"),
+    "conv3d_dw": ("conv3d.cu", "manigaussian_tpu/ops/pallas_conv.py:158"),
+    "conv3d_dw_resident": ("conv3d.cu", "scripts/r4_pallas_dw_repro.py:120"),
+    "fused_lamb": ("lamb.cu", None)}
+# each flag's timers, run after the build
+TIMERS = {"--flash-times": (phase_flash,),
+          "--blend-times": (blend_times, phase_blend),
+          "--conv-times": (conv_times, phase_conv),
+          "--lamb-times": (phase_lamb,),
+          "--gnf-steps": (gnf_steps,)}
+
+
+def card() -> str:
+    """The card's name and power limit, from nvidia-smi."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True,
+                          timeout=60).stdout.strip().splitlines()[0]
+
+
 def main(argv) -> int:
-    if argv not in ([], ["--flash-times"], ["--blend-times"], ["--embed-ab"],
-                    ["--conv-times"], ["--gnf-steps"], ["--step-times"],
-                    ["--lamb-times"]):
-        print(f"chip_smoke: unknown arguments {argv}; takes none, "
-              "--flash-times, --blend-times, --conv-times, --embed-ab, "
-              "--gnf-steps, --step-times or --lamb-times", file=sys.stderr)
+    if argv and (len(argv) > 1 or argv[0] not in TIMERS):
+        print(f"chip_smoke: unknown arguments {argv}; takes none or one of "
+              f"{', '.join(TIMERS)}", file=sys.stderr)
         return 2
     try:
         import torch
@@ -4691,46 +3427,15 @@ def main(argv) -> int:
                 "conv3d_dw_resident": conv3d_dw_resident,
                 "fused_lamb": FusedLamb}
 
-    if argv == ["--flash-times"]:
-        # the flash kernels' times alone, for an A/B of two checkouts in one
-        # call (run this file from the root of each in turn)
+    if argv:
         phase_build()
-        flash_times()
-        return 0
-    if argv == ["--blend-times"]:
-        # the blend pair's times alone, for the same kind of A/B
-        phase_build()
-        blend_times()
-        return 0
-    if argv == ["--embed-ab"]:
-        # where the semantic tiers' GT embedding runs, in one call
-        phase_build()
-        embed_ab()
-        return 0
-    if argv == ["--conv-times"]:
-        # the dW kernels' times alone, for the same kind of A/B
-        phase_build()
-        conv_times()
-        return 0
-    if argv == ["--step-times"]:
-        # the one-process step and act alone, for the same kind of A/B
-        phase_build()
-        step_times()
-        return 0
-    if argv == ["--gnf-steps"]:
-        # GNFACTOR_BC's first steps at full width, card against CPU
-        phase_build()
-        gnf_steps()
-        return 0
-    if argv == ["--lamb-times"]:
-        # the LAMB kernel against the plain loop at gnfactor_bc's leaves
-        phase_build()
-        phase_lamb()
+        for timer in TIMERS[argv[0]]:
+            timer()
+        print(card())
         return 0
     t_start = time.time()
+    phase_gpu_tests()
     phase_build()
-    records = {**phase_flash(), **phase_blend(), **phase_conv(),
-               **phase_lamb()}
     bn = phase_bench(counters)
     phase_small()
     phase_small_train(counters)
@@ -4742,14 +3447,14 @@ def main(argv) -> int:
     phase_train_routes(
         tr["demos"], "train_routes", "w_geo", (),
         {"kernel": ({"policy_attn_impl": "flash"}, {"backend": "pallas"}),
-         "plain": ({"policy_attn_impl": "xla"}, {"backend": "xla"})}, "kernel")
+         "plain": ({"policy_attn_impl": "xla"}, {"backend": "xla"})})
     dy = phase_tier_slice(counters, tr["demos"], "w_geo_dyna", DYNA_OVERRIDES,
                           "train_slice", "dyna_act")
     phase_train_routes(
         tr["demos"], "conv_routes", "w_geo_dyna",
         ("method.neural_renderer.next_mlp.warm_up=0",),
         {"pallas": ({"policy_conv_impl": "pallas"}, {}),
-         "z2d": ({"policy_conv_impl": "z2d"}, {})}, "pallas")
+         "z2d": ({"policy_conv_impl": "z2d"}, {})})
     se = phase_tier_slice(counters, tr["demos"], "w_geo_sem_dyna",
                           SEM_OVERRIDES, "sem_slice", "sem_act")
     if se["extractors"] != ["SDVaeFeatureExtractor"] * 2:
@@ -4761,19 +3466,18 @@ def main(argv) -> int:
         {"kernel": ({"policy_attn_impl": "flash", "policy_conv_impl": "pallas"},
                     {"backend": "pallas"}),
          "plain": ({"policy_attn_impl": "xla", "policy_conv_impl": "z2d"},
-                   {"backend": "xla"})}, "kernel")
+                   {"backend": "xla"})})
     gn = phase_tier_slice(counters, tr["demos"], "w_geo", GNF_OVERRIDES,
                           "gnf_slice", "gnf_act")
-    gr = phase_train_routes(
+    phase_train_routes(
         tr["demos"], "gnf_routes", "w_geo", GNF_OVERRIDES,
         {"kernel": ({"policy_attn_impl": "flash"}, {}),
-         "plain": ({"policy_attn_impl": "xla"}, {})}, "kernel", vis=True)
-    phase_nerf_parts(gr["batch"], gr["cfg"])
+         "plain": ({"policy_attn_impl": "xla"}, {})}, vis="kernel")
     phase_dino_dir()
     dp = phase_dp_slice(tr["demos"])
     ev = phase_eval_slice(counters, sl)
     rp = phase_eval_rpc(counters, sl, ev)
-    ad = phase_adam_slice(counters, tr["demos"], tr["step_ms"])
+    ad = phase_adam_slice(counters, tr["demos"])
     dk = phase_disk_slice(counters, tr["demos"])
     tl = phase_two_level(counters)
     phase_dino_swiglu()
@@ -4790,8 +3494,8 @@ def main(argv) -> int:
     # and GNFACTOR_BC's among them (each phase holds its path to its
     # expected counts). A kernel of a path that the path never launched
     # fails the run; the resident dW scheme is on no path (the backward uses
-    # the workspace scheme) and is held to its plain version and timed in
-    # phase `conv` only.
+    # the workspace scheme) and is held to its plain version by
+    # tests/test_torch_conv_gpu.py and timed by `--conv-times` only.
     paths = {"act_w_geo": sl["launches"], "train_w_geo": tr["launches"],
              "train_w_geo_dyna": dy["launches"],
              "act_w_geo_dyna": dy["act_launches"],
@@ -4822,19 +3526,21 @@ def main(argv) -> int:
         if idle:
             raise AssertionError(f"dp_slice {run} never launched {idle}")
     off_path = {"conv3d_dw_resident"}
-    for name, rec in records.items():
-        rec["launches"] = se["launches"][name]
-        rec["launches_by_path"] = {p: c[name] for p, c in paths.items()}
-        if (rec["launches"] == 0) != (name in off_path):
-            raise AssertionError(f"kernel {name}: {rec['launches']} launches "
-                                 "on the main path")
+    records = []
+    for name, (source, replaces) in KERNELS.items():
+        launches = se["launches"][name]
+        if (launches == 0) != (name in off_path):
+            raise AssertionError(f"kernel {name}: {launches} launches on the "
+                                 "main path")
+        records.append({"name": name, "route": "cuda",
+                        "source": f"manigaussian_tpu_torch/csrc/{source}",
+                        "replaces": replaces, "launches": launches,
+                        "launches_by_path": {p: c[name]
+                                             for p, c in paths.items()}})
     log("done", seconds=round(time.time() - t_start, 3))
 
-    print(json.dumps({"kernels": list(records.values())}))
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0])
+    print(json.dumps({"kernels": records}))
+    print(card())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

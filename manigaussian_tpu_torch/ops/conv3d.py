@@ -28,8 +28,8 @@ import torch.nn.functional as F
 from manigaussian_tpu_torch.ops import _cuda
 
 # The scheme `conv3d_same`'s backward uses: the faster one at the policy's
-# two 100³ convolutions in bf16 (chip_smoke.py phase `conv`; the times stand
-# in PERF.md).
+# two 100³ convolutions in bf16 (`chip_smoke.py --conv-times`; the times
+# stand in PERF.md).
 DW_SCHEME = "workspace"
 DW_SCHEMES = ("workspace", "resident")
 # Both bf16 dW schemes (csrc/conv3d.cu) walk dW tiles of one row of the

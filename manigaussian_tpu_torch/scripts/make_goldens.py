@@ -10,8 +10,8 @@ keys. The oracle is `ops/rasterizer_ref.py`, the JAX package's untiled
 per-pixel oracle copied op for op (every Gaussian at every pixel, the
 transmittance as exp of a cumulative sum of log1p), on the GPU or with
 `--cpu` on the CPU, differentiated by autograd; the production rasterizer
-and its CUDA kernels are held to these frames elsewhere (chip_smoke.py's
-`golden` and `tools`).
+and its CUDA kernels are held to these frames elsewhere
+(tests/test_torch_blend_gpu.py, and chip_smoke.py's `tools`).
 
 The scenes' random parts and the loss weights are `jax.random` draws in the
 JAX script (PRNGKey(key) split five ways; PRNGKeys 7, 8 and 9). They are

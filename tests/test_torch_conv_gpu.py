@@ -1,7 +1,9 @@
 """The CUDA 3³ conv kernels (forward/dx, dW by the workspace and the resident
 scheme) against their plain PyTorch versions, on the card; the resident
-scheme also at every kind of cluster size (more CTAs than steps among them)
-and the card's table of co-resident clusters it plans from.
+scheme also at every kind of cluster size (more CTAs than steps among them),
+at the widest cluster the card holds and at the plan it picks, and the
+card's table of co-resident clusters it plans from; the policy's two 100³
+convolutions in bf16.
 
 Marked `gpu`: each case skips without a CUDA device. This file imports
 nothing of JAX, so it also runs where JAX is not installed:
@@ -28,6 +30,7 @@ from manigaussian_tpu_torch.ops.conv3d import (DW_MAX_CLUSTER, conv3d_dw,
                                                conv3d_forward,
                                                conv3d_same_batched,
                                                conv3d_same_reference,
+                                               dw_resident_plan,
                                                resident_clusters)
 
 TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-3, 2.0 ** -8)}
@@ -176,3 +179,60 @@ def test_cuda_resident_cluster_table_and_refused_sizes():
     with pytest.raises(ValueError, match="bf16 kernel"):
         conv3d_dw_resident_cluster(x.float(), dy.float(), 2)
     assert conv3d_dw_resident.launches == before
+
+
+def _check_dw_schemes(x, dy, wtol):
+    """dW by the workspace scheme, the resident scheme at its plan and at
+    the widest cluster the card holds: each within wtol of the plain
+    version and 2·wtol of the workspace scheme, each the same bits on a
+    second run; the resident entry point launches the plan's cluster (the
+    same bits as that size forced)."""
+    table = resident_clusters(torch.device("cuda"))
+    widest = max(s for s, held in table.items() if held > 0)
+    b, d, h, w, ci = x.shape
+    plan = dw_resident_plan(b * d * h * w, ci, dy.shape[-1], table)
+    assert 1 <= plan["cluster"] <= DW_MAX_CLUSTER
+    assert plan["clusters_at_once"] == table[plan["cluster"]] >= 1
+    ref = conv3d_dw_reference(x, dy)
+    got = {}
+    for name, fn in (("workspace", conv3d_dw_workspace),
+                     ("resident", conv3d_dw_resident),
+                     ("widest", lambda x, dy: conv3d_dw_resident_cluster(
+                         x, dy, widest))):
+        got[name] = fn(x, dy)
+        assert _rel(got[name], ref) <= wtol, name
+        assert torch.equal(fn(x, dy), got[name]), name
+        assert _rel(got["workspace"], got[name]) <= 2 * wtol, name
+    assert torch.equal(conv3d_dw_resident_cluster(x, dy, plan["cluster"]),
+                       got["resident"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", SHAPES)
+def test_cuda_resident_dw_at_the_widest_cluster_and_at_its_plan(shape):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; runs on the card")
+    x, _, dy = _inputs(shape, torch.bfloat16, seed=3)
+    _check_dw_schemes(x, dy, TOL[torch.bfloat16][1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ci,co", [(256, 128),    # `final`
+                                   (128, 128)])   # `up0` after the resize
+def test_cuda_conv_kernels_at_the_policys_100_cubed_convs(ci, co):
+    """The policy's two full-resolution convolutions in bf16, [1, 100, 100,
+    100, Ci] → Co: the forward and dx against the plain versions, and dW as
+    `_check_dw_schemes`."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; runs on the card")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    mk = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    x = mk(1, 100, 100, 100, ci).to(torch.bfloat16)
+    wm = (0.05 * mk(27, ci, co)).to(torch.bfloat16)
+    dy = mk(1, 100, 100, 100, co).to(torch.bfloat16)
+    ftol, wtol = TOL[torch.bfloat16]
+    assert _rel(conv3d_forward(x, wm), conv3d_same_reference(x, wm)) <= ftol
+    w_flip = wm.flip(0).transpose(1, 2).contiguous()
+    assert _rel(conv3d_forward(dy, w_flip),
+                conv3d_same_reference(dy, w_flip)) <= ftol
+    _check_dw_schemes(x, dy, wtol)

@@ -34,7 +34,7 @@ TABLES = {"h100": H100, "gpcs_of_18": _gpc_table([18] * 7 + [6]),
           "small": _gpc_table([10, 10, 8])}
 
 # (voxels, Ci, Co): the policy's two 100³ convs and the ragged shapes of
-# chip_smoke.py's phase `conv` (27 voxels: one step, fewer than any S > 1)
+# tests/test_torch_conv_gpu.py (27 voxels: one step, fewer than any S > 1)
 SHAPES = [(100 ** 3, 256, 128), (100 ** 3, 128, 128), (5 * 6 * 7, 8, 16),
           (2 * 9 * 10 * 11, 24, 40), (12 * 13 * 14, 72, 136),
           (2 * 12 * 13 * 14, 128, 128), (6 * 7 * 9, 256, 128), (27, 64, 128)]

@@ -9,7 +9,7 @@ tests/test_flash_attention.py: 1e-5 in fp32 (the same fp32 math in another
 summation order), 2e-2 in bf16 (probabilities, output and dS are rounded to
 bf16, whose step is 2^-8 relative), gradients relative to max(1, their
 largest magnitude). The CUDA kernels themselves are held to the plain
-version on the card by tests/test_torch_flash_gpu.py and chip_smoke.py.
+version on the card by tests/test_torch_flash_gpu.py.
 """
 
 import jax

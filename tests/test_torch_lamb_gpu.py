@@ -7,7 +7,8 @@ nothing of JAX, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest tests/test_torch_lamb_gpu.py -m gpu
 
-Three consecutive steps from the same gradients: the moments m and v equal
+Three consecutive steps from the same gradients, on leaves of every kind up
+to `gnfactor_bc`'s 178 at its published width: the moments m and v equal
 the loop's bit for bit (the kernel rounds each op on its own, in the loop's
 order and with its float32 constants). p may differ through the trust
 ratio alone, whose two norms the kernel sums in another order than
@@ -30,6 +31,7 @@ from manigaussian_tpu_torch.agents.bc_agent import ManiGaussianBCAgent
 from manigaussian_tpu_torch.agents.qfunction import QFunction
 from manigaussian_tpu_torch.ops.fused_lamb import (CHUNK, FusedLamb,
                                                    lamb_step_reference)
+from manigaussian_tpu_torch.utils.config_io import load_config
 from manigaussian_tpu_torch.utils.optimizers import Lamb
 
 pytestmark = pytest.mark.gpu
@@ -58,11 +60,31 @@ def gnf_micro_shapes():
                 .parameters()]
 
 
+def gnf_full_shapes():
+    """The leaves of `gnfactor_bc` at its published width, as the train
+    entry point builds it from `--variant w_geo`, conf/method/GNFACTOR_BC.yaml
+    and `method.neural_renderer.d_embed=512`: 178 leaves, 40,064,145
+    elements."""
+    cfg = load_config(None, ["method.name=GNFACTOR_BC",
+                             "method.neural_renderer.renderer_type=nerf",
+                             "method.neural_renderer.foundation_model_name="
+                             "diffusion",
+                             "method.neural_renderer.d_embed=512"],
+                      variant="w_geo")
+    with torch.device("meta"):
+        return [tuple(p.shape) for p in QFunction(cfg.method).parameters()]
+
+
 # each case: the leaves' shapes, how p is drawn, and which leaf has no
 # gradient (None: every leaf has one)
 def case_leaves(case, rng):
     if case == "gnfactor_bc_micro":
         shapes = gnf_micro_shapes()
+        return [0.05 * rng.standard_normal(s) for s in shapes], None
+    if case == "gnfactor_bc":
+        shapes = gnf_full_shapes()
+        assert len(shapes) == 178
+        assert sum(int(np.prod(s)) for s in shapes) == 40_064_145
         return [0.05 * rng.standard_normal(s) for s in shapes], None
     if case == "one_element":
         return [rng.standard_normal(1)], None
@@ -79,7 +101,7 @@ def case_leaves(case, rng):
 
 
 CASES = ["gnfactor_bc_micro", "one_element", "many_chunks", "zero_leaf",
-         "clamped", "no_gradient"]
+         "clamped", "no_gradient", "gnfactor_bc"]
 
 
 def on(device, arrays):

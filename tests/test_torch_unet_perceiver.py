@@ -83,8 +83,8 @@ def test_perceiver_bf16_dtype_flow_matches_jax():
     JAX (heads float32, d0 and the language tokens bf16), and the values agree
     to a few bf16 steps of their scale — the two packages round at different
     points (the JAX z2d conv rounds each of its three partial sums, a torch
-    conv once), so the bound is 5e-2 × max(1, max|ref|), as chip_smoke.py
-    uses between its two attention routes."""
+    conv once), so the bound is 5e-2 × max(1, max|ref|), chip_smoke.py's
+    ROUTE_TOL between the kernel and the plain attention route."""
     rng = np.random.default_rng(5)
     inputs = ((rng.standard_normal((1, 20, 20, 20, 10)) * 0.5).astype(np.float32),
               rng.standard_normal((1, 4)).astype(np.float32),
