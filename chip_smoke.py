@@ -10,7 +10,9 @@ failure raises and exits non-zero. Its phases:
                    conv,lamb}_gpu.py with `-m gpu`, in a subprocess: every
                    kernel against its plain PyTorch version at the main
                    paths' shapes and ragged ones (the checks of each kernel
-                   live there and only there);
+                   live there and only there); and the act's CUDA graph's,
+                   tests/test_torch_act_graph_gpu.py (replays against the
+                   eager act);
   2. build       — compile every CUDA source of the port with nvcc (sm_90a),
                    one process per source; ptxas's register report, and no
                    spill and no serialized wgmma in the bf16 wgmma kernels
@@ -34,9 +36,11 @@ failure raises and exits non-zero. Its phases:
                    width from seeded random weights, against the CPU;
   5. slice       — the act/eval path at the full width of `config.w_geo()`
                    through the port's eval entry point on the mock env:
-                   `transformer_depth` flash forwards per act, every action
-                   a finite [1, 9]; `routes`: Q values of the kernel route
-                   against the plain route (ROUTE_TOL);
+                   one CUDA graph captured, every later act a replay
+                   (`counting_acts`), `transformer_depth` flash forwards per
+                   act the host dispatched, every action a finite [1, 9];
+                   `routes`: Q values of the kernel route against the plain
+                   route (ROUTE_TOL);
   6. training    — the train entry point at full width (`train_slice`:
                    `w_geo`, 6 steps, a checkpoint, a resume), each step's
                    launches (`expected_launches`) and the recon render's
@@ -249,9 +253,10 @@ def device_ms(fn, iters: int = 20, warmup: int = 3, by_kernel=None) -> float:
     return total_us / 1e3 / iters
 
 
-# The kernels' own tests: every kernel against its plain version on the card
+# The kernels' own tests, every kernel against its plain version on the
+# card, and the act graph's
 GPU_TESTS = tuple(f"tests/test_torch_{k}_gpu.py"
-                  for k in ("flash", "blend", "conv", "lamb"))
+                  for k in ("flash", "blend", "conv", "lamb", "act_graph"))
 
 
 def phase_gpu_tests() -> None:
@@ -939,11 +944,15 @@ def phase_small() -> None:
                           else ROUTE_TOL * max(1.0, ref.abs().max().item()))
         same = all(torch.equal(getattr(ag, f).cpu(), getattr(ac, f)) for f in
                    ("trans_coords", "rot_grip_indices", "collision_indices"))
+        # q_values and the act's dispatches: the graph's warm-up and capture
+        g = gpu.act_graph_counts
+        forwards = 1 + g["eager"] + 2 * g["captures"]
         ok = (all(errs[n] <= tols[n] for n in errs)
               and (same or dtype != "float32")
               and flash_self_attention.launches > before
+              and g["captures"] == 1
               and (conv3d_forward.launches - conv_before
-                   == (4 if conv == "pallas" else 0)))
+                   == (2 * forwards if conv == "pallas" else 0)))
         log("small_reference", config=f"micro_variant(w_geo) {dtype} pad={pad} "
             f"conv={conv}, 16x16", max_abs_err=errs, tol=tols,
             same_discrete_action=same, ok=ok)
@@ -955,27 +964,51 @@ ACT_ARGS = ("--env", "mock", "--eval-type", "last", "--episodes", "2",
             "--episode-length", "5")
 
 
+def counting_acts(tally: dict, inspect=None):
+    """`ManiGaussianBCAgent.act` wrapped to add up in `tally` the act calls
+    ("calls"), the CUDA graph replays among them ("replays") and the acts
+    whose kernels the host launched one by one, as the launch counters
+    count them ("dispatched": an eager act once, the act that captures a
+    graph twice, its warm-up and its capture; a replay launches nothing
+    from the host). `inspect(result)` sees each act's result. Returns
+    (the wrapper, the original)."""
+    from manigaussian_tpu_torch.agents.bc_agent import ManiGaussianBCAgent
+    orig = ManiGaussianBCAgent.act
+    for k in ("calls", "replays", "dispatched"):
+        tally.setdefault(k, 0)
+
+    def counted(self, observation):
+        before = dict(self.act_graph_counts)
+        res = orig(self, observation)
+        d = {k: v - before[k] for k, v in self.act_graph_counts.items()}
+        tally["calls"] += 1
+        tally["replays"] += d["replays"]
+        tally["dispatched"] += d["eager"] + 2 * d["captures"]
+        if inspect is not None:
+            inspect(res)
+        return res
+
+    return counted, orig
+
+
 def drive_eval(counters: dict, logdir: str, demos: str, args=ACT_ARGS):
     """The port's eval entry point (by default on the mock env from the
     newest checkpoint under `logdir`; `args` its flags after --logdir and
     --demo-root), with the counts set to 0 just before and read just after.
-    Returns (act calls, launches, the result rows); raises unless every act
-    returned a finite [1, 9] action."""
+    Returns (the acts' tally, `counting_acts`; launches; the result rows);
+    raises unless every act returned a finite [1, 9] action and every act
+    after an agent's first on the card was a graph replay."""
     import torch
     from manigaussian_tpu_torch import eval as eval_cli
     from manigaussian_tpu_torch.agents.bc_agent import ManiGaussianBCAgent
 
-    calls, shapes, finite = [0], [], []
-    orig_act = ManiGaussianBCAgent.act
+    acts, shapes, finite = {}, [], []
 
-    def counted_act(self, observation):
-        res = orig_act(self, observation)
-        calls[0] += 1
+    def inspect(res):
         shapes.append(list(res.continuous_action.shape))
         finite.append(bool(torch.isfinite(res.continuous_action).all()))
-        return res
 
-    ManiGaussianBCAgent.act = counted_act
+    ManiGaussianBCAgent.act, orig_act = counting_acts(acts, inspect)
     try:
         for fn in counters.values():
             fn.launches = 0
@@ -986,7 +1019,9 @@ def drive_eval(counters: dict, logdir: str, demos: str, args=ACT_ARGS):
         ManiGaussianBCAgent.act = orig_act
     if not (all(s == [1, 9] for s in shapes) and all(finite)):
         raise AssertionError(f"act returned {shapes}, finite {finite}")
-    return calls[0], launches, rows
+    if acts["dispatched"] != 2 * (acts["calls"] - acts["replays"]):
+        raise AssertionError(f"acts on the card not replayed: {acts}")
+    return acts, launches, rows
 
 
 def phase_slice(counters: dict) -> dict:
@@ -1009,9 +1044,9 @@ def phase_slice(counters: dict) -> dict:
     n_params = sum(p.numel() for p in agent.qfn.parameters())
     del agent
 
-    calls, launches, rows = drive_eval(counters, logdir, demos)
-    expected = m.transformer_depth * calls
-    ok = (calls >= 2
+    acts, launches, rows = drive_eval(counters, logdir, demos)
+    expected = m.transformer_depth * acts["dispatched"]
+    ok = (acts["calls"] >= 2 and acts["replays"] >= 1
           and launches["flash_self_attention_fwd"] == expected
           and all(v == 0 for k, v in launches.items()
                   if k != "flash_self_attention_fwd")
@@ -1020,7 +1055,7 @@ def phase_slice(counters: dict) -> dict:
         latents=[m.num_latents, m.latent_dim], depth=m.transformer_depth,
         heads=[m.latent_heads, m.latent_dim_head], dtype=m.policy_dtype,
         camera=list(cfg.rlbench.camera_resolution), params=n_params,
-        act_calls=calls, launches=launches, expected_flash=expected,
+        acts=acts, launches=launches, expected_flash=expected,
         rows=rows, ok=ok)
     if not ok:
         raise AssertionError("the act/eval slice failed its checks")
@@ -1503,25 +1538,27 @@ def phase_tier_slice(counters: dict, demos: str, variant: str, overrides,
     the train entry point, a checkpoint, a resume for 2 more steps (with
     the dynamic field and the warm-up gate at step 2: one render a step
     before the gate, two after it and after the resume); then `act` through
-    the eval entry point on that checkpoint: per act, the flash forward once
-    per self-attention layer and, with `policy_conv_impl="pallas"`, the conv
-    forward twice."""
+    the eval entry point on that checkpoint: a CUDA graph replayed after
+    the first act and, per act the host dispatched (`counting_acts`), the
+    flash forward once per self-attention layer and, with
+    `policy_conv_impl="pallas"`, the conv forward twice."""
     tr = phase_train_slice(counters, variant, overrides, steps=steps,
                            demos=demos, label=label)
     m = tr["cfg"].method
-    calls, launches, rows = drive_eval(
+    acts, launches, rows = drive_eval(
         counters, os.path.join(tr["logdir"], "seed0"), demos)
+    n = acts["dispatched"]
     expect = {k: 0 for k in counters} | {
-        "flash_self_attention_fwd": m.transformer_depth * calls,
-        "conv3d_fwd": 2 * calls if m.policy_conv_impl == "pallas" else 0}
-    ok = (calls >= 2 and launches == expect and len(rows) == 1
-          and "eval_envs/return" in rows[0])
+        "flash_self_attention_fwd": m.transformer_depth * n,
+        "conv3d_fwd": 2 * n if m.policy_conv_impl == "pallas" else 0}
+    ok = (acts["calls"] >= 2 and acts["replays"] >= 1 and launches == expect
+          and len(rows) == 1 and "eval_envs/return" in rows[0])
     log(act_label, config=variant, conv_impl=m.policy_conv_impl,
-        act_calls=calls, launches=launches, expected=expect, rows=rows, ok=ok)
+        acts=acts, launches=launches, expected=expect, rows=rows, ok=ok)
     if not ok:
         raise AssertionError(f"act on the {variant} checkpoint failed its "
                              "checks")
-    return {**tr, "act_launches": launches, "act_calls": calls}
+    return {**tr, "act_launches": launches, "act_calls": acts["calls"]}
 
 
 def phase_train_routes(demos: str, label: str, variant: str, overrides,
@@ -2049,13 +2086,8 @@ def counted_eval_worker(job):
     from manigaussian_tpu_torch.agents.bc_agent import ManiGaussianBCAgent
     from manigaussian_tpu_torch.train import kernel_launches
     fn, payload = job
-    calls, orig = [0], ManiGaussianBCAgent.act
-
-    def counted(self, observation):
-        calls[0] += 1
-        return orig(self, observation)
-
-    ManiGaussianBCAgent.act = counted
+    acts = {}
+    ManiGaussianBCAgent.act, _ = counting_acts(acts)
     row = fn(payload)
     on_card = torch.cuda.is_initialized()
     out = os.path.join(WORK, "eval_workers")
@@ -2063,7 +2095,9 @@ def counted_eval_worker(job):
     with open(os.path.join(out, f"{payload[2]}.json"), "w") as f:
         json.dump({"pid": os.getpid(), "device": payload[6],
                    "card": torch.cuda.get_device_name(0) if on_card else None,
-                   "act_calls": calls[0], "launches": kernel_launches()}, f)
+                   "act_calls": acts["calls"],
+                   "dispatched_acts": acts["dispatched"],
+                   "launches": kernel_launches()}, f)
     return row
 
 
@@ -2099,9 +2133,9 @@ def phase_eval_slice(counters: dict, sl: dict) -> dict:
     """The eval CLI at full `w_geo` width over two checkpoints of different
     weights (the slice's, seed 0, and one from seed 1): serially in this
     process with the launch counts (the flash forward `transformer_depth`
-    times an act); with `--workers 2` (two spawned processes on the card,
-    each counting its own acts and launches), whose rows must equal the
-    serial ones; with `--record-every-n 1`, one GIF an episode holding the
+    times an act the host dispatched, `counting_acts`); with `--workers 2`
+    (two spawned processes on the card, each counting its own acts and
+    launches), whose rows must equal the serial ones; with `--record-every-n 1`, one GIF an episode holding the
     episode's steps + 1 frames."""
     import multiprocessing
     import torch
@@ -2115,10 +2149,10 @@ def phase_eval_slice(counters: dict, sl: dict) -> dict:
     cfg, demos, m = sl["cfg"], sl["demos"], sl["cfg"].method
     base = eval_copy(sl["logdir"], "eval_ckpts")
     save_checkpoint(base, 1, create_agent(cfg, device="cuda", seed=1).qfn)
-    calls, launches, rows = drive_eval(counters, eval_copy(base, "eval_serial"),
-                                       demos, ("--env", "mock", *EVAL_ARGS))
+    acts, launches, rows = drive_eval(counters, eval_copy(base, "eval_serial"),
+                                      demos, ("--env", "mock", *EVAL_ARGS))
     expect = {k: 0 for k in counters} | {
-        "flash_self_attention_fwd": m.transformer_depth * calls}
+        "flash_self_attention_fwd": m.transformer_depth * acts["dispatched"]}
 
     shutil.rmtree(os.path.join(WORK, "eval_workers"), ignore_errors=True)
     ctx = multiprocessing.get_context("spawn")
@@ -2138,7 +2172,8 @@ def phase_eval_slice(counters: dict, sl: dict) -> dict:
     workers_ok = all(
         w["device"] == "cuda" and w["card"] == card and w["act_calls"] > 0
         and w["launches"] == {k: 0 for k in counters} | {
-            "flash_self_attention_fwd": m.transformer_depth * w["act_calls"]}
+            "flash_self_attention_fwd":
+                m.transformer_depth * w["dispatched_acts"]}
         for w in workers.values())
     worker_launches = {k: sum(w["launches"][k] for w in workers.values())
                        for k in counters}
@@ -2170,13 +2205,13 @@ def phase_eval_slice(counters: dict, sl: dict) -> dict:
     gifs = sorted(os.listdir(os.path.join(rec_log, "videos")))
     gif_frames = [Image.open(os.path.join(rec_log, "videos", g)).n_frames
                   for g in gifs]
-    ok = (calls >= 4 and launches == expect and len(rows) == 2
+    ok = (acts["calls"] >= 4 and launches == expect and len(rows) == 2
           and [int(r["step"]) for r in rows] == [0, 1]
           and w_rows == rows and workers_ok and r_rows == rows
           and gifs == want and [n for _, n in frames] == [s + 1 for s in lengths]
           and all(0 < g <= s + 1 for g, s in zip(gif_frames, lengths)))
     log("eval_slice", config="w_geo", checkpoints=[0, 1], rows=rows,
-        act_calls=calls, launches=launches, expected=expect, workers=workers,
+        acts=acts, launches=launches, expected=expect, workers=workers,
         worker_rows_equal=w_rows == rows, gifs=gifs,
         recorder_frames=frames, episode_steps=lengths,
         gif_frames_after_pillow=gif_frames, ok=ok)
@@ -2217,7 +2252,7 @@ def phase_eval_rpc(counters: dict, sl: dict, ev: dict) -> dict:
     try:
         line = read_line(proc, 120)
         address = line.rsplit(" ", 1)[-1]
-        calls, launches, rows = drive_eval(
+        acts, launches, rows = drive_eval(
             counters, eval_copy(ev["base"], "eval_rpc"), sl["demos"],
             ("--env", f"rpc://{address}", *EVAL_ARGS))
     finally:
@@ -2231,7 +2266,7 @@ def phase_eval_rpc(counters: dict, sl: dict, ev: dict) -> dict:
 
     eval_runner.make_env = kept_env
     try:
-        t_calls, t_launches, t_rows = drive_eval(
+        t_acts, t_launches, t_rows = drive_eval(
             counters, eval_copy(ev["base"], "eval_transcript"),
             sl["demos"], ("--env", f"transcript://{session}", *EVAL_ARGS))
     finally:
@@ -2243,12 +2278,13 @@ def phase_eval_rpc(counters: dict, sl: dict, ev: dict) -> dict:
         "flash_self_attention_fwd": m.transformer_depth * n}
     ok = (line.startswith("[sim-host] serving mock env on 127.0.0.1:")
           and rows == ev["rows"] and t_rows == ev["rows"] and exhausted
-          and launches == expect(calls) and t_launches == expect(t_calls)
-          and calls == t_calls)
+          and launches == expect(acts["dispatched"])
+          and t_launches == expect(t_acts["dispatched"])
+          and acts["calls"] == t_acts["calls"])
     log("eval_rpc", server_line=line, rows_equal_mock=rows == ev["rows"],
         transcript_rows_equal_mock=t_rows == ev["rows"],
         transcript_exhausted=exhausted,
-        transcript_records=len(replay.records), act_calls=calls,
+        transcript_records=len(replay.records), acts=acts,
         launches=launches, transcript_launches=t_launches, ok=ok)
     if not ok:
         raise AssertionError("the RPC / transcript eval failed its checks")
@@ -3060,16 +3096,11 @@ JAX_CAMPAIGN_SUMMARY = os.path.join(ROOT, "results", "flagship_campaign",
 
 def run_counted(counters: dict, fn, *args, **kwargs):
     """fn(*args, **kwargs) with the counts set to 0 just before and read just
-    after, and the agent's act calls counted: (result, launches, act
-    calls)."""
+    after, and the agent's acts counted: (result, launches, the acts'
+    tally, `counting_acts`)."""
     from manigaussian_tpu_torch.agents.bc_agent import ManiGaussianBCAgent
-    calls, orig = [0], ManiGaussianBCAgent.act
-
-    def counted(self, observation):
-        calls[0] += 1
-        return orig(self, observation)
-
-    ManiGaussianBCAgent.act = counted
+    acts = {}
+    ManiGaussianBCAgent.act, orig = counting_acts(acts)
     try:
         for c in counters.values():
             c.launches = 0
@@ -3077,14 +3108,14 @@ def run_counted(counters: dict, fn, *args, **kwargs):
         launches = {k: c.launches for k, c in counters.items()}
     finally:
         ManiGaussianBCAgent.act = orig
-    return out, launches, calls[0]
+    return out, launches, acts
 
 
 def training_launches(m, iters: int, act_calls: int = 0) -> dict:
     """A training run's launches from step 0: every step's, the recon
-    render's at every `render_freq`-th step, and `act_calls` acts (the
-    flash forward `transformer_depth` times each, with the conv kernels 2
-    conv forwards)."""
+    render's at every `render_freq`-th step, and `act_calls` acts that the
+    host dispatched (`counting_acts`: the flash forward `transformer_depth`
+    times each, with the conv kernels 2 conv forwards)."""
     render_freq = m.neural_renderer.render_freq
     renders = len(range(0, iters, render_freq)) if render_freq else 0
     out = {k: sum(expected_launches(m, i)[k] for i in range(iters))
@@ -3140,7 +3171,7 @@ def phase_campaign(counters: dict) -> dict:
           and summary["logged_rows"] == len(range(0, CAMPAIGN_ITERS, 10))
           and step == CAMPAIGN_ITERS - 1 and params_finite
           and panels == ["0.png", "30.png"]
-          and launches == expect and acts == 0
+          and launches == expect and acts["calls"] == 0
           and sorted(os.listdir(art)) == sorted(
               ["config.json", "summary.json", "train.csv", *panels]))
     log("campaign", config="w_geo", voxel=m.voxel_sizes[0],
@@ -3203,7 +3234,8 @@ def phase_artifact(counters: dict) -> dict:
     workers_ok = all(
         w["device"] == "cuda" and w["card"] == card and w["act_calls"] > 0
         and w["launches"] == {k: 0 for k in counters} | {
-            "flash_self_attention_fwd": m.transformer_depth * w["act_calls"]}
+            "flash_self_attention_fwd":
+                m.transformer_depth * w["dispatched_acts"]}
         for w in workers.values())
     table = read_csv(os.path.join(out, "0.csv"))
     with open(os.path.join(out, "0.csv")) as f:
@@ -3216,7 +3248,8 @@ def phase_artifact(counters: dict) -> dict:
                  and np.isclose(avg[0], np.mean([table[c][0]
                                                  for c in ret_cols]))
                  and "step" in category_table(table))
-    ok = (format_ok and workers_ok and launches == expect and acts == 0
+    ok = (format_ok and workers_ok and launches == expect
+          and acts["calls"] == 0
           and m.policy_dtype == "float32" and m.latent_dim_head == 8
           and np.isfinite(summary["last"]["mean"])
           and np.isfinite(summary["best"]["mean"])
@@ -3279,7 +3312,7 @@ def phase_tools(counters: dict) -> dict:
                             "--episodes", "1",
                             "--work", os.path.join(WORK, "diag")])
     m = micro_w_geo(("open_drawer",), 40, 20).method
-    expect = training_launches(m, 40, acts)
+    expect = training_launches(m, 40, acts["dispatched"])
     diag_ok = ([r["step"] for r in report] == [20, 39] and launches == expect
                and all(np.isfinite(v) for r in report for v in r.values())
                and all(r["n"] > 0 for r in report))

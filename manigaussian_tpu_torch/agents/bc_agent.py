@@ -21,7 +21,7 @@ metrics reduced over the data group. `tile_mesh` (JAX
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Union
+from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -85,7 +85,8 @@ def make_optimizer(cfg: ManiGaussianConfig, params):
 
 class ManiGaussianBCAgent:
     """Holds the config, the device, the QFunction (in eval mode outside
-    `update`), the optimizer and the step count."""
+    `update`), the optimizer, the step count and, on CUDA, the act's
+    captured graphs."""
 
     def __init__(self, cfg: ManiGaussianConfig, device: DeviceLike = None,
                  seed: int = 0, tile_mesh=None):
@@ -100,6 +101,9 @@ class ManiGaussianBCAgent:
                                    dtype=torch.float32, device=self.device)
         self.opt: Optional[Union[Lamb, AdamW]] = None
         self.step = 0
+        self.act_graph_counts = {"captures": 0, "replays": 0, "eager": 0}
+        self._act_graphs: Dict[tuple, _ActGraph] = {}
+        self._capture_stream: Optional[torch.cuda.Stream] = None
 
     def optimizer(self) -> Union[Lamb, AdamW]:
         """The optimizer state, made at the first use (act needs none)."""
@@ -215,6 +219,9 @@ class ManiGaussianBCAgent:
             o = {k: torch.as_tensor(observation[k], dtype=torch.float32,
                                     device=self.device) for k in OBS_KEYS}
             rgb = normalize_rgb(o["rgb"])
+        return self._q(rgb, o)
+
+    def _q(self, rgb: torch.Tensor, o: Dict[str, torch.Tensor]) -> QOutput:
         return self.qfn(rgb, o["pcd"], o["low_dim_state"], o["lang_goal_emb"],
                         o["lang_token_embs"], self.bounds)
 
@@ -248,9 +255,69 @@ class ManiGaussianBCAgent:
         The stages are named ranges for torch.profiler, in call order:
         "policy/inputs", "policy/voxelize" (QFunction), "policy/encoder",
         "policy/perceiver", "policy/decoder" (the Perceiver) and
-        "policy/decode"."""
+        "policy/decode".
+
+        On CUDA everything after the inputs' upload is one CUDA graph per
+        observation signature (`_ActGraph`): the first act of a signature
+        captures it, every later one uploads into its static inputs and
+        replays it under "policy/graph", where the stage ranges do not
+        show. The returned tensors are the act's own, which later acts do
+        not overwrite. `act_graph_counts` counts each act once, as a
+        capture, a replay or an eager act (the CPU)."""
+        if self.device.type != "cuda":
+            self.act_graph_counts["eager"] += 1
+            return self._act_eager(observation)
+        shapes = {k: _shape(observation[k]) for k in OBS_KEYS}
+        key = (self.device, self.cfg.method.policy_dtype, self.qfn.training,
+               tuple(shapes.items()))
+        g = self._act_graphs.get(key)
+        if g is None or not g.holds(self.qfn, self.bounds):
+            g = self._act_graphs[key] = self._capture(observation, shapes)
+            self.act_graph_counts["captures"] += 1
+        else:
+            with trace_annotation("policy/inputs"):
+                g.upload(observation)
+            self.act_graph_counts["replays"] += 1
+        with trace_annotation("policy/graph"):
+            g.graph.replay()
+            return ActResult(*(t.clone() for t in g.outputs))
+
+    def _act_eager(self, observation: Dict) -> ActResult:
+        return self._decode(self.q_values(observation))
+
+    def _act_from(self, o: Dict[str, torch.Tensor]) -> ActResult:
+        """The act from its float32 inputs on the device: what a graph
+        holds."""
+        return self._decode(self._q(normalize_rgb(o["rgb"]), o))
+
+    def _capture(self, observation: Dict,
+                 shapes: Dict[str, Tuple[int, ...]]) -> "_ActGraph":
+        """Upload, one eager act on a side stream (cuDNN's choice, the
+        caching allocator, `constant`), then the capture on that stream,
+        into a private memory pool. Nothing here waits for the device. The
+        capture is "relaxed": the port's kernels bind the device's context
+        with `cudaFree(nullptr)` before they encode a tensor map, a call
+        that a stricter capture refuses."""
+        g = _ActGraph(shapes, self.device, self.qfn, self.bounds)
+        with trace_annotation("policy/inputs"):
+            g.upload(observation)
+        if self._capture_stream is None:
+            self._capture_stream = torch.cuda.Stream(self.device)
+        side, main = self._capture_stream, torch.cuda.current_stream(
+            self.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            self._act_from(g.inputs)
+            g.graph.capture_begin(capture_error_mode="relaxed")
+            try:
+                g.outputs = self._act_from(g.inputs)
+            finally:
+                g.graph.capture_end()
+        main.wait_stream(side)
+        return g
+
+    def _decode(self, q: QOutput) -> ActResult:
         m = self.cfg.method
-        q = self.q_values(observation)
         with trace_annotation("policy/decode"):
             with trace_annotation("policy/decode/argmax"):
                 coords, rot_grip, coll = choose_highest_action(
@@ -271,3 +338,65 @@ class ManiGaussianBCAgent:
                     [attention_coord, quat, rot_grip[:, 3:4].to(torch.float32),
                      coll.to(torch.float32)], dim=-1)
         return ActResult(continuous, coords, rot_grip, coll)
+
+
+def _shape(v) -> Tuple[int, ...]:
+    return tuple(v.shape) if hasattr(v, "shape") else np.shape(v)
+
+
+class _ActGraph:
+    """One act captured as a CUDA graph: the float32 device inputs it reads,
+    the pinned host buffers they are uploaded from, the outputs it writes
+    (`outputs`, an ActResult) and where the parameters, buffers and bounds
+    it reads lived when it was captured."""
+
+    def __init__(self, shapes: Dict[str, Tuple[int, ...]],
+                 device: torch.device, qfn: torch.nn.Module,
+                 bounds: torch.Tensor):
+        self.inputs = {k: torch.empty(s, dtype=torch.float32, device=device)
+                       for k, s in shapes.items()}
+        self.staging = {k: torch.empty(s, dtype=torch.float32,
+                                       pin_memory=True)
+                        for k, s in shapes.items()}
+        self.staging_np = {k: t.numpy() for k, t in self.staging.items()}
+        self.uploaded = torch.cuda.Event()
+        self.modules = tuple(qfn.modules())
+        self.addresses = self._addresses(bounds)
+        self.graph = torch.cuda.CUDAGraph()
+        self.outputs: Optional[ActResult] = None
+
+    def _addresses(self, bounds: torch.Tensor) -> Tuple[int, ...]:
+        # the modules' own dicts: a walk of `parameters()` costs ~5 x more
+        return tuple(t.data_ptr() for m in self.modules
+                     for d in (m._parameters, m._buffers)
+                     for t in d.values() if t is not None) + (
+                         bounds.data_ptr(),)
+
+    def holds(self, qfn: torch.nn.Module, bounds: torch.Tensor) -> bool:
+        """Whether the graph still reads this module's tensors: an in-place
+        update (`load_state_dict`, the optimizer) keeps their addresses; a
+        rebound parameter or buffer, or a move, does not."""
+        return (self.modules[0] is qfn
+                and self._addresses(bounds) == self.addresses)
+
+    def upload(self, observation: Dict) -> None:
+        """Each input into its static buffer, converted to float32 as
+        `q_values` converts it: from the host through its pinned buffer
+        with a `non_blocking` copy, from the device by a copy on the device.
+        The pinned buffers are written only once the previous upload has
+        read them (in an act loop the caller's read of the action has long
+        since waited for that), and by numpy: torch's copy of a 128² frame
+        splits across intra-op threads, whose wake-ups on a loaded host
+        cost milliseconds."""
+        self.uploaded.synchronize()
+        for k, dst in self.inputs.items():
+            src = observation[k]
+            if torch.is_tensor(src) and src.device.type == "cuda":
+                dst.copy_(src, non_blocking=True)
+                continue
+            if torch.is_tensor(src):
+                self.staging[k].copy_(src)
+            else:
+                np.copyto(self.staging_np[k], src, casting="unsafe")
+            dst.copy_(self.staging[k], non_blocking=True)
+        self.uploaded.record()
